@@ -1,17 +1,19 @@
 """Model factory (counterpart of sres_tpu/models/registry.py): model config
 → ``nn.Module``. Only ``rcan`` is ported; every other name raises.
 
-``build_model`` returns an f32-parameter module on the CPU whose forward
-computes in the dtype of ``precision``; move it with ``.to(device)``. With
-``seed`` the parameters are drawn from torch's default conv init by one
-seeded ``torch.Generator`` (reproducible across runs and machines).
+``build_model`` returns an f32-parameter module on ``device`` (the card by
+default; ``device="cpu"`` only when asked, and an error when the card is
+asked for and absent) whose forward computes in the dtype of
+``precision``. With ``seed`` the parameters are drawn from torch's default
+conv init by one seeded ``torch.Generator`` on the CPU (reproducible across
+runs and machines), then moved.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Mapping, Optional
 
-from sres_tpu_torch.device import compute_dtype
+from sres_tpu_torch.device import compute_dtype, resolve_device
 
 COMMON_PARMS: Dict[str, Any] = dict(
     nchannels_in=1,
@@ -40,7 +42,9 @@ def resolve_parms(model_cfg: Mapping, extra_defaults: Optional[Dict[str, Any]] =
 
 
 def build_model(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
-                precision: str = "bf16", seed: Optional[int] = None):
+                precision: str = "bf16", seed: Optional[int] = None,
+                device: str = "cuda"):
+    dev = resolve_device(device)
     name = model_cfg["name"]
     if name != "rcan":
         raise NotImplementedError(
@@ -52,4 +56,4 @@ def build_model(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
                        dtype=compute_dtype(precision))
     if seed is not None:
         init_torch_default(model, seed)
-    return model
+    return model.to(dev)

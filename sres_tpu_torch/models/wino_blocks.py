@@ -5,12 +5,16 @@ sres_tpu/models/wino_blocks.py).
 ``layers.Conv`` and ``layers.ResidualGroup`` under the same names, so
 checkpoints are winograd-agnostic; only ``forward`` differs. The
 transform-domain weights U = G·w·Gᵀ are computed once per weight load (a
-cache keyed by every parameter's version counter and storage) and kept in
-the activation dtype.
+cache keyed by every parameter's version counter and storage, and by the
+count of optimizer steps taken in the process) and kept in the activation
+dtype.
 
-Forward only: the backward kernels (sres_tpu/ops/pallas/winograd_conv.py
-:_bwd_kernel, wino_group_grad.py stash/chunk kernels) are not ported yet,
-so calling these modules with autograd recording raises.
+Under autograd (grad enabled and an input or a parameter that requires
+grad) the modules route through ``WinoConvFn`` and ``WinoGroupTrailFn``,
+whose backward runs the hand-written backward kernels and returns each
+parameter's gradient; U is rebuilt after every optimizer step. Under
+``torch.no_grad()`` or ``torch.inference_mode()`` they run the
+forward-only path.
 
 ``plain = True`` (see ``set_plain_twins``) routes a module through the
 kernels' plain-torch twins on any device; it exists for on-card
@@ -18,31 +22,42 @@ comparisons of the kernel path with its reference.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.optim.optimizer import register_optimizer_step_post_hook
 
 from sres_tpu_torch.models.layers import Conv, ResidualGroup
 from sres_tpu_torch.ops.winograd import transform_weights
-from sres_tpu_torch.ops.winograd_conv import (wino_conv, wino_conv_plain,
+from sres_tpu_torch.ops.winograd_conv import (WinoConvFn, WinoGroupTrailFn,
+                                              wino_conv, wino_conv_plain,
                                               wino_group_fwd,
                                               wino_group_fwd_plain)
 
-_NO_BACKWARD = ("the Winograd path is forward-only: its backward kernels "
-                "are ROADMAP Queue 2 items 2, 5 and 6 — run it under "
-                "torch.no_grad() or torch.inference_mode()")
+
+# A fused optimizer updates the parameters in place without bumping their
+# version counters (torch._fused_adam_ does not), so every optimizer step
+# also advances this count, which is part of the cache key.
+_OPTIMIZER_STEPS = [0]
+
+
+def _count_step(optimizer, args, kwargs) -> None:
+    _OPTIMIZER_STEPS[0] += 1
+
+
+register_optimizer_step_post_hook(_count_step)
 
 
 def _key(module: nn.Module, dtype: torch.dtype) -> Tuple:
-    return (dtype,) + tuple((p._version, p.data_ptr(), p.device)
-                            for p in module.parameters())
+    return (dtype, _OPTIMIZER_STEPS[0]) + tuple(
+        (p._version, p.data_ptr(), p.device) for p in module.parameters())
 
 
-def _check_no_grad(module: nn.Module) -> None:
-    if torch.is_grad_enabled() and any(p.requires_grad
-                                       for p in module.parameters()):
-        raise NotImplementedError(_NO_BACKWARD)
+def _records_grad(module: nn.Module, *xs: Optional[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and (
+        any(x is not None and x.requires_grad for x in xs)
+        or any(p.requires_grad for p in module.parameters()))
 
 
 def _bias(conv: Conv) -> torch.Tensor:
@@ -72,9 +87,12 @@ class WinoConv(Conv):
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """conv(x) + bias, plus ``residual`` when given (RCAN's body conv
         and global skip)."""
-        _check_no_grad(self)
+        u = self._u(x.dtype)
+        if _records_grad(self, x, residual):
+            return WinoConvFn.apply(x, self.weight, self.bias, residual, u,
+                                    self.m, self.plain)
         fn = wino_conv_plain if self.plain else wino_conv
-        return fn(x, self._u(x.dtype), _bias(self), self.m, residual=residual)
+        return fn(x, u, _bias(self), self.m, residual=residual)
 
 
 class WinoResidualGroup(ResidualGroup):
@@ -112,10 +130,23 @@ class WinoResidualGroup(ResidualGroup):
         return (st(ws).to(dtype), st(bv), st(cw1), st(cb1), st(cw2), st(cb2),
                 transform_weights(trail.weight, self.m).to(dtype), _bias(trail))
 
+    def _params(self) -> List[Optional[torch.Tensor]]:
+        """Parameters in WinoGroupTrailFn order (None for an absent bias)."""
+        blocks, trail = list(self.body)[:-1], self.body[-1]
+        out: List[Optional[torch.Tensor]] = []
+        for blk in blocks:
+            ca = blk.body[3].conv_du
+            for conv in (blk.body[0], blk.body[2], ca[0], ca[2]):
+                out += [conv.weight, conv.bias]
+        return out + [trail.weight, trail.bias]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_no_grad(self)
+        ops = self._operands(x.dtype)
+        if _records_grad(self, x):
+            return WinoGroupTrailFn.apply(x, ops, self.m, self.plain,
+                                          *self._params())
         fn = wino_group_fwd_plain if self.plain else wino_group_fwd
-        ws, bv, cw1, cb1, cw2, cb2, wt, bt = self._operands(x.dtype)
+        ws, bv, cw1, cb1, cw2, cb2, wt, bt = ops
         return fn(x, ws, bv, cw1, cb1, cw2, cb2, self.m, wt, bt)
 
 

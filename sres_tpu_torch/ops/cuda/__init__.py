@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels of the port.
 
-The sources in this directory are compiled by ``nvcc`` into one shared
-library with a plain C interface at first use, into
-``sres_tpu_torch/_build/`` (keyed by a hash of the source and the flags),
-and bound with ``ctypes``. No PyTorch header is compiled, so a build takes
-seconds. Pointers are passed as ``data_ptr()`` integers and the stream as
+Every ``*.cu`` in this directory is compiled by its own ``nvcc`` process
+(all started together) and the objects are linked into one shared library
+with a plain C interface at first use, into ``sres_tpu_torch/_build/``
+(keyed by a hash of every source, header and flag), and bound with
+``ctypes``. No PyTorch header is compiled, so a build takes seconds.
+Pointers are passed as ``data_ptr()`` integers and the stream as
 ``torch.cuda.current_stream().cuda_stream``.
 
 Nothing here runs at import time, so every module of the package imports
@@ -21,11 +22,10 @@ import time
 from pathlib import Path
 from typing import Optional
 
-SOURCE = Path(__file__).with_name("winograd.cu")
+SOURCE_DIR = Path(__file__).parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the last nvcc run
@@ -57,7 +57,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_ca_skip.restype = i
     lib.sres_ca_skip.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                  i, i, i, i, i, i, i, vp]
+    lib.sres_wino_bwd_tiles.restype = i
+    lib.sres_wino_bwd_tiles.argtypes = [i]
+    lib.sres_wino_conv_bwd.restype = i
+    lib.sres_wino_conv_bwd.argtypes = [vp] * 14 + [i] * 9 + [vp]
+    lib.sres_ca_skip_bwd.restype = i
+    lib.sres_ca_skip_bwd.argtypes = [vp] * 14 + [i] * 6 + [vp]
     return lib
+
+
+def sources():
+    """The kernel sources (compiled) and headers (hashed), sorted."""
+    return (sorted(SOURCE_DIR.glob("*.cu")),
+            sorted(SOURCE_DIR.glob("*.cuh")))
 
 
 def load() -> ctypes.CDLL:
@@ -66,20 +78,37 @@ def load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     flags = ARCH_FLAGS + NVCC_FLAGS
-    tag = hashlib.sha1(SOURCE.read_bytes() + " ".join(flags).encode()
-                       ).hexdigest()[:16]
-    so = BUILD_DIR / f"libsres_wino_{tag}.so"
+    srcs, hdrs = sources()
+    digest = hashlib.sha1(" ".join(flags).encode())
+    for f in srcs + hdrs:
+        digest.update(f.name.encode() + f.read_bytes())
+    so = BUILD_DIR / f"libsres_wino_{digest.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *flags, "-o", str(tmp), str(SOURCE)]
+        tag = f"{os.getpid()}.tmp"
+        nvcc = nvcc_path()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [so.with_name(f"{f.stem}.{tag}.o") for f in srcs]
+        procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(o), str(f)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        build_log = "".join(outs)
+        for f, p, out in zip(srcs, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {f.name} ({p.returncode}):"
+                                   f"\n{out}")
+        tmp = so.with_name(f"{so.name}.{tag}")
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
+        build_log += proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{build_log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{build_log}")
         os.replace(tmp, so)
     _lib = _bind(ctypes.CDLL(str(so)))
     return _lib

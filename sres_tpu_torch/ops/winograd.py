@@ -15,7 +15,7 @@ Weights are in torch layout, (Cout, Cin, 3, 3); transformed weights are
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -62,6 +62,52 @@ def check_geometry(m: int, h: int, w: int) -> None:
         raise ValueError(f"H={h}, W={w} must be multiples of the tile size {m}")
 
 
+# ----------------------------------------------- factored transform programs
+# The straight-line programs of sres_tpu/ops/winograd.py:169-224, in the
+# same operation order, on lists of tensors (one per transform index).
+def bt_apply(m: int, f: List[torch.Tensor]) -> List[torch.Tensor]:
+    """out[i] = Σ_q BT[i, q]·f[q]."""
+    if m == 4:
+        p = f[4] - 4.0 * f[2]
+        q = 4.0 * f[1] - f[3]
+        s = f[4] - f[2]
+        t = 2.0 * (f[1] - f[3])
+        return [4.0 * f[0] - 5.0 * f[2] + f[4], p - q, p + q, s - t, s + t,
+                4.0 * f[1] - 5.0 * f[3] + f[5]]
+    return [f[0] - f[2], f[1] + f[2], f[2] - f[1], f[1] - f[3]]
+
+
+def bt_t_apply(m: int, f: List[torch.Tensor]) -> List[torch.Tensor]:
+    """out[q] = Σ_i BT[i, q]·f[i] (the dx adjoint, :183)."""
+    if m == 4:
+        u, v = f[1] + f[2], f[1] - f[2]
+        w, z = f[3] + f[4], f[3] - f[4]
+        return [4.0 * f[0], 4.0 * (f[5] - v) - 2.0 * z,
+                -5.0 * f[0] - 4.0 * u - w, v + 2.0 * z - 5.0 * f[5],
+                f[0] + u + w, f[5]]
+    return [f[0], f[1] - f[2] + f[3], f[1] + f[2] - f[0], -f[3]]
+
+
+def at_apply(m: int, f: List[torch.Tensor]) -> List[torch.Tensor]:
+    """out[u] = Σ_i AT[u, i]·f[i] (n inputs → m outputs)."""
+    if m == 4:
+        s1, d1 = f[1] + f[2], f[1] - f[2]
+        s2, d2 = f[3] + f[4], f[3] - f[4]
+        return [f[0] + s1 + s2, d1 + 2.0 * d2, s1 + 4.0 * s2,
+                d1 + 8.0 * d2 + f[5]]
+    return [f[0] + f[1] + f[2], f[1] - f[2] - f[3]]
+
+
+def at_t_apply(m: int, f: List[torch.Tensor]) -> List[torch.Tensor]:
+    """out[i] = Σ_u AT[u, i]·f[u] (m inputs → n outputs; the dM adjoint,
+    :215)."""
+    if m == 4:
+        s, t = f[0] + f[2], f[1] + f[3]
+        u, v = f[0] + 4.0 * f[2], 2.0 * f[1] + 8.0 * f[3]
+        return [f[0], s + t, s - t, u + v, u - v, f[3]]
+    return [f[0], f[0] + f[1], f[0] - f[1], -f[1]]
+
+
 def transform_weights(w: torch.Tensor, m: int) -> torch.Tensor:
     """(Cout, Cin, 3, 3) → (n², Cin, Cout) f32: U[ti·n+tj] = (G w Gᵀ)[ti, tj],
     evaluated in float64 (correctly rounded to f32 up to ties)."""
@@ -69,8 +115,21 @@ def transform_weights(w: torch.Tensor, m: int) -> torch.Tensor:
         raise ValueError(f"Winograd tile m must be one of {sorted(MATS)}, got {m}")
     n = m + 2
     g = torch.from_numpy(MATS[m][1]).to(w.device)
-    u = torch.einsum("tp,sq,oipq->tsio", g, g, w.detach().double())
+    u = torch.einsum("tp,sq,oipq->tsio", g, g, w.double())
     return u.reshape(n * n, w.shape[1], w.shape[0]).float()
+
+
+def untransform_weight_grad(du: torch.Tensor, m: int) -> torch.Tensor:
+    """Adjoint of ``transform_weights``: dU (..., n², Cin, Cout) → dw (...,
+    Cout, Cin, 3, 3) f32, dw[o, i] = Gᵀ·dU[·, ·, i, o]·G evaluated in float64
+    (counterpart of sres_tpu/ops/winograd.py:untransform_weight_grad :334,
+    whose compensated double-f32 form only matches XLA constant folding)."""
+    if m not in MATS:
+        raise ValueError(f"Winograd tile m must be one of {sorted(MATS)}, got {m}")
+    n = m + 2
+    g = torch.from_numpy(MATS[m][1]).to(du.device)
+    d = du.double().reshape(*du.shape[:-3], n, n, *du.shape[-2:])
+    return torch.einsum("tp,sq,...tsio->...oipq", g, g, d).float()
 
 
 def wino_conv_ref(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],

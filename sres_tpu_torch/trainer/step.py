@@ -1,8 +1,11 @@
-"""The eval step (counterpart of sres_tpu/trainer/step.py:37-140, 308-335;
-reference sres/controller/dual_trainer.py:557-571).
+"""The train and eval steps and the optimizer (counterpart of
+sres_tpu/trainer/step.py:37-199, 308-402; reference
+sres/controller/dual_trainer.py:126, 296-323, 557-571).
 
 HR batch (NCHW) → bicubic ×4 downsample to the LR input → model forward →
-masked loss against the HR target, plus the bicubic-upsample baseline loss.
+masked loss against the HR target, plus the bicubic-upsample baseline loss;
+the train step also backpropagates the loss and takes one optimizer step,
+updating the parameters in place (the JAX step donates its state).
 Everything stays NCHW: the JAX step's NCHW→NHWC transpose is a TPU layout
 cost and is not carried over.
 """
@@ -94,3 +97,94 @@ def build_eval_step(model: torch.nn.Module, sc: StepConfig) -> Callable:
             return metrics, (lr, out, target, interp)
 
     return eval_step
+
+
+def _param_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def build_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     sc: StepConfig) -> Callable:
+    """Returns train_step(hr_nchw, weight) -> metrics: one Adam step on the
+    masked loss (``mloss``), run on the device of the model's parameters;
+    metrics holds 0-d f32 tensors ``mloss``, ``sloss`` and ``interp_sloss``
+    (the JAX ``_train_step_core``, step.py:143-173). No multi-step or
+    gradient-accumulation variant yet (ROADMAP Queue 1 item 4)."""
+    if sc.has_bn or sc.ntemporal:
+        raise NotImplementedError("BatchNorm and temporal-feature models are "
+                                  "not ported yet (ROADMAP Queue 1 item 8)")
+    dev = _param_device(model)
+
+    def train_step(hr: torch.Tensor, weight: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+        model.train()
+        hr, weight = hr.to(dev), weight.to(dev)
+        lr, target = prepare_inputs(hr, sc)
+        optimizer.zero_grad(set_to_none=True)
+        sloss, mloss = sr_loss(model(lr), target, weight, sc.loss_fn)
+        mloss.backward()
+        optimizer.step()
+        with torch.no_grad():
+            interp_sloss, _ = sr_loss(_interp_baseline(lr, sc), target, weight,
+                                      sc.loss_fn)
+        return dict(mloss=mloss.detach(), sloss=sloss.detach(),
+                    interp_sloss=interp_sloss)
+
+    return train_step
+
+
+def build_optimizer(model: torch.nn.Module, task: Mapping,
+                    packed: bool = False) -> torch.optim.Optimizer:
+    """Adam with the task's lr, or AdamW when ``weight_decay`` > 0 (the JAX
+    ``build_optimizer``, step.py:338-362; optax's defaults b1 0.9, b2 0.999,
+    eps 1e-8), over the model's parameters where they lie; ``fused=True``
+    on the card. ``packed`` (pipeline.packed_opt) is a TPU graph-size lever:
+    accepted, no effect. With ``task.scheduler`` the lr is set per epoch by
+    ``set_learning_rate``."""
+    del packed
+    lr = float(task["lr"])
+    wd = float(task.get("weight_decay", 0.0))
+    fused = _param_device(model).type == "cuda"
+    if wd > 0.0:
+        opt = torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=wd,
+                                fused=fused)
+    else:
+        opt = torch.optim.Adam(model.parameters(), lr=lr, fused=fused)
+    opt.scheduled = bool(task.get("scheduler", None))
+    return opt
+
+
+def lr_at_epoch(task: Mapping, epochs_completed: int) -> float:
+    """Learning rate after ``epochs_completed`` per-epoch scheduler steps,
+    with torch scheduler semantics (step.py:365-391). ``task.scheduler``:
+      {type: step, step_size: N, gamma: g}
+      {type: multistep, milestones: [..], gamma: g}
+      {type: exponential, gamma: g}
+      {type: cosine, t_max: N, eta_min: m}
+    """
+    lr0 = float(task["lr"])
+    sched = task.get("scheduler", None)
+    if not sched:
+        return lr0
+    stype = sched["type"]
+    e = max(0, int(epochs_completed))
+    if stype == "step":
+        return lr0 * float(sched.get("gamma", 0.1)) ** (e // int(sched["step_size"]))
+    if stype == "multistep":
+        passed = sum(1 for m in sched["milestones"] if e >= int(m))
+        return lr0 * float(sched.get("gamma", 0.1)) ** passed
+    if stype == "exponential":
+        return lr0 * float(sched["gamma"]) ** e
+    if stype == "cosine":
+        t_max = int(sched["t_max"])
+        eta_min = float(sched.get("eta_min", 0.0))
+        return eta_min + 0.5 * (lr0 - eta_min) * (1.0 + math.cos(math.pi * e / t_max))
+    raise ValueError(f"Unknown scheduler type: {stype}")
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set the lr of every parameter group; no-op when the optimizer was
+    built without a scheduler (step.py:394-402)."""
+    if getattr(optimizer, "scheduled", False):
+        for group in optimizer.param_groups:
+            group["lr"] = float(lr)

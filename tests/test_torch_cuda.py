@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain twins, on the card.
+"""The port's CUDA kernels (forward and backward) against their plain
+twins, on the card.
 
 Imports no JAX, so it runs on a machine that has only torch and a card;
 tests/conftest.py imports JAX, so skip it there:
@@ -75,3 +76,95 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(TypeError):
         twc.wino_conv(torch.zeros(1, 64, 8, 8, device=dev, dtype=torch.float16),
                       torch.zeros(64, 64, 3, 3, device=dev), None, 4)
+
+
+def _check_many(name, k32, p32, kbf, pbf):
+    """Output by output: the f32 bound and the bf16 envelope."""
+    torch.cuda.synchronize()
+    for i, (a, b, c, d) in enumerate(zip(k32, p32, kbf, pbf)):
+        assert float((a - b).abs().max()) <= 3e-5 * float(b.abs().max()), (name, i)
+        assert _rel(c, b) <= 2 * _rel(d, b) + 1e-4, (name, i, _rel(c, b), _rel(d, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("mode", ["plain", "relu", "ca", "accum"])
+def test_wino_conv_bwd_matches_twin(dev, m, mode):
+    """K1 in each of its modes: per-conv adjoint (g in the activation
+    dtype), ReLU gate, CA prologue into an f32 dx, ReLU gate accumulated
+    into an f32 buffer."""
+    rng = np.random.default_rng(20 + m)
+    cl = dict(memory_format=torch.channels_last)
+    shape = (5, 64, 16, 24)
+    x, g = _t(rng, shape, dev), _t(rng, shape, dev)
+    w = _t(rng, (64, 64, 3, 3), dev, 0.04)
+    y = twc.wino_conv_plain(x, w, _t(rng, (64,), dev, 0.04), m, relu=True)
+    gate, ds = _t(rng, (5, 64), dev).sigmoid(), _t(rng, (5, 64), dev, 1e-3)
+    prev = _t(rng, shape, dev).contiguous(**cl)
+
+    def run(fn, dt):
+        kw = {}
+        if mode in ("relu", "accum"):
+            kw["y"] = y.to(dt)
+        if mode == "ca":
+            kw.update(gate=gate, ds=ds)
+        if mode == "accum":
+            kw["dprev"] = prev.clone(memory_format=torch.channels_last)
+        gg = g if mode in ("ca", "accum") else g.to(dt)
+        return fn(gg, x.to(dt), w, m, **kw)
+
+    launches = twc.LAUNCHES["wino_conv_bwd"]
+    _check_many(f"m{m} {mode}", run(twc.wino_conv_bwd, torch.float32),
+                run(twc.wino_conv_bwd_plain, torch.float32),
+                run(twc.wino_conv_bwd, torch.bfloat16),
+                run(twc.wino_conv_bwd_plain, torch.bfloat16))
+    assert twc.LAUNCHES["wino_conv_bwd"] == launches + 2
+
+
+@pytest.mark.cuda
+def test_ca_skip_bwd_matches_twin(dev):
+    rng = np.random.default_rng(30)
+    da, c2 = _t(rng, (3, 64, 16, 16), dev), _t(rng, (3, 64, 16, 16), dev)
+    ca = [_t(rng, s, dev, 0.1) for s in ((32, 64), (32,), (64, 32), (64,))]
+    _check_many("ca_skip_bwd", twc.ca_skip_bwd(da, c2, *ca),
+                twc.ca_skip_bwd_plain(da, c2, *ca),
+                twc.ca_skip_bwd(da, c2.bfloat16(), *ca),
+                twc.ca_skip_bwd_plain(da, c2.bfloat16(), *ca))
+
+
+@pytest.mark.cuda
+def test_group_gradients_match_twin(dev):
+    """A 2-RCAB group with its trailing conv under autograd: every gradient
+    through the kernels against the plain twins (f32 bound 1e-4·max)."""
+    from sres_tpu_torch.models.layers import init_torch_default
+    from sres_tpu_torch.models.wino_blocks import WinoResidualGroup
+    grp = init_torch_default(WinoResidualGroup(64, 2, 2, 4), 5).to(dev)
+    rng = np.random.default_rng(31)
+    x = _t(rng, (3, 64, 16, 16), dev).contiguous(memory_format=torch.channels_last)
+    gy = _t(rng, (3, 64, 16, 16), dev)
+    grads = {}
+    for plain in (False, True):
+        grp.plain = plain
+        xx = x.clone().requires_grad_()
+        gs = torch.autograd.grad((grp(xx) * gy).sum(), [xx, *grp.parameters()])
+        grads[plain] = gs
+    torch.cuda.synchronize()
+    for a, b in zip(grads[False], grads[True]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_bwd_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 64, 8, 8, device=dev)
+    w = torch.zeros(64, 64, 3, 3, device=dev)
+    with pytest.raises(ValueError):            # cotangent in float16
+        twc.wino_conv_bwd(x.half(), x, w, 4)
+    with pytest.raises(ValueError):            # dprev not float32
+        twc.wino_conv_bwd(x, x, w, 4, dprev=x.bfloat16())
+    with pytest.raises(ValueError):            # gate without ds
+        twc.wino_conv_bwd(x, x, w, 4, gate=torch.zeros(1, 64, device=dev))
+    ca = [torch.zeros(s, device=dev) for s in ((32, 64), (32,), (64, 32), (64,))]
+    with pytest.raises(ValueError):            # da not float32
+        twc.ca_skip_bwd(x.bfloat16(), x.bfloat16(), *ca)
+    with pytest.raises(ValueError):            # 32 channels
+        twc.ca_skip_bwd(x[:, :32], x[:, :32], *ca)

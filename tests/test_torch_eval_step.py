@@ -1,5 +1,6 @@
 """The port's eval step against the JAX eval step, the smoke script's model
-config against the YAML, and the port's import hygiene (no JAX, no YAML)."""
+config against the YAML, and the port's import hygiene (no JAX, no YAML,
+nothing of the JAX package)."""
 import json
 import subprocess
 import sys
@@ -31,7 +32,7 @@ TASK = dict(input_variables=["SST"], target_variables=["SST"])
 def jax_variables(cfg, seed):
     """A JAX RCAN variable tree holding seeded torch-default weights (built
     by sres_tpu.util.torch_import, so no flax init has to compile)."""
-    sd = build_model(cfg, 1, 1, "f32", seed=seed).state_dict()
+    sd = build_model(cfg, 1, 1, "f32", seed=seed, device="cpu").state_dict()
     return import_variables(cfg["name"], {k: v.numpy() for k, v in sd.items()}, cfg)
 
 
@@ -47,7 +48,7 @@ def test_eval_step_matches_jax():
                          batch_stats={}, opt_state=None)
     jmet, jouts = jax_build_eval_step(jmodel, jsc)(state, jnp.asarray(hr),
                                                    jnp.asarray(weight))
-    model = build_model(CFG, 1, 1, precision="f32")
+    model = build_model(CFG, 1, 1, precision="f32", device="cpu")
     model.load_state_dict(state_dict_from_jax(v, CFG), strict=True)
     met, outs = build_eval_step(model, sc)(torch.from_numpy(hr), torch.from_numpy(weight))
     assert set(met) == set(jmet) == {"mloss", "sloss", "interp_sloss"}
@@ -75,6 +76,22 @@ def test_losses_match_jax():
                                float(jlosses.psnr(0.1, 2.0)), rtol=1e-6)
 
 
+def test_l2loss_gradient_matches_jax():
+    """The gradient of the masked RMSE against jax.grad of the JAX l2loss,
+    with a 0-weight padding tile (whose gradient is 0)."""
+    rng = np.random.default_rng(3)
+    prd = rng.normal(size=(4, 1, 8, 8)).astype(np.float32)
+    tar = rng.normal(size=(4, 1, 8, 8)).astype(np.float32)
+    w = np.array([1, 1, 0, 1], np.float32)
+    nhwc = lambda a: jnp.asarray(a.transpose(0, 2, 3, 1))
+    want = jax.jit(jax.grad(jlosses.l2loss))(nhwc(prd), nhwc(tar), jnp.asarray(w))
+    p = torch.from_numpy(prd).requires_grad_()
+    tlosses.l2loss(p, torch.from_numpy(tar), torch.from_numpy(w)).backward()
+    np.testing.assert_allclose(p.grad.numpy().transpose(0, 2, 3, 1), np.asarray(want),
+                               rtol=1e-5, atol=1e-7)
+    assert not p.grad[2].any()
+
+
 def test_chip_smoke_config_is_the_flagship_yaml():
     sys.path.insert(0, str(ROOT))
     try:
@@ -95,12 +112,23 @@ import chip_smoke, sres_tpu_torch.device, sres_tpu_torch.models
 import sres_tpu_torch.models.rcan, sres_tpu_torch.ops.cuda
 import sres_tpu_torch.ops.resize, sres_tpu_torch.ops.winograd_conv
 import sres_tpu_torch.trainer.step, sres_tpu_torch.util.weights
+import numpy as np
+from sres_tpu_torch.util.weights import state_dict_from_jax
+conv = lambda k, ci, co: {"kernel": np.zeros((k, k, ci, co), np.float32),
+                          "bias": np.zeros(co, np.float32)}
+rcab = {"Conv_0": conv(3, 4, 4), "Conv_1": conv(3, 4, 4),
+        "CALayer_0": {"Conv_0": conv(1, 4, 2), "Conv_1": conv(1, 2, 4)}}
+params = {"Conv_0": conv(3, 1, 4), "Conv_1": conv(3, 4, 4),
+          "ResidualGroup_0": {"RCAB_0": rcab, "Conv_0": conv(3, 4, 4)},
+          "SPUpsample_0": {"Conv_0": conv(3, 4, 16), "Conv_1": conv(3, 4, 16)},
+          "Conv_2": conv(3, 4, 1)}
+sd = state_dict_from_jax({"params": params}, dict(name="rcan", nlayers=1, nblocks=1))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "yaml", "sres_tpu"))
 out = io.StringIO()
 with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     rc = chip_smoke.main()
-print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue())))
+print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd))))
 """
 
 
@@ -115,7 +143,10 @@ def fresh_process():
 
 
 def test_port_imports_no_jax_and_no_yaml(fresh_process):
+    """Nothing of JAX, YAML or the JAX package is loaded, even after a
+    call of state_dict_from_jax (20 tensors for a 1-group, 1-RCAB RCAN)."""
     assert fresh_process["bad"] == []
+    assert fresh_process["sd_keys"] == 20
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):

@@ -1,7 +1,8 @@
 """The port's RCAN against the JAX RCAN: a JAX variable tree, exported by
-sres_tpu.util.torch_export, loads into the port with strict=True, and both the direct and the Winograd
-trunk match the JAX forward (nfeatures 8, 1 group, 2 blocks, 8×8 LR).
-On the CPU the Winograd trunk runs the kernels' plain twins."""
+the port's copy of sres_tpu.util.torch_export, loads into the port with
+strict=True, and both the direct and the Winograd trunk match the JAX
+forward (nfeatures 8, 1 group, 2 blocks, 8×8 LR). On the CPU the Winograd
+trunk runs the kernels' plain twins."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,7 +23,7 @@ CFG = dict(name="rcan", nfeatures=8, nlayers=1, nblocks=2, cbottleneck=2,
 def jax_variables(cfg, seed):
     """A JAX RCAN variable tree holding seeded torch-default weights (built
     by sres_tpu.util.torch_import, so no flax init has to compile)."""
-    sd = build_model(cfg, 1, 1, "f32", seed=seed).state_dict()
+    sd = build_model(cfg, 1, 1, "f32", seed=seed, device="cpu").state_dict()
     return import_variables(cfg["name"], {k: v.numpy() for k, v in sd.items()}, cfg)
 
 
@@ -36,7 +37,7 @@ def jax_rcan():
 
 
 def _port(cfg, variables):
-    model = build_model(cfg, 1, 1, precision="f32")
+    model = build_model(cfg, 1, 1, precision="f32", device="cpu")
     model.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
     return model.eval()
 
@@ -55,9 +56,25 @@ def test_rcan_matches_jax(jax_rcan, winograd):
                                rtol=0, atol=tol)
 
 
+def test_weight_export_copy_matches_jax_exporter(jax_rcan):
+    """The port's copy of the RCAN exporter against
+    sres_tpu.util.torch_export.export_variables on a seeded tree: the same
+    keys in the same order, bit for bit. Other architectures raise."""
+    from sres_tpu.util.torch_export import export_variables as jax_export
+    from sres_tpu_torch.util import weights
+    variables = jax_rcan[1]
+    want = jax_export("rcan", variables, CFG)
+    got = weights.export_variables("rcan", variables, CFG)
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        weights.export_variables("edsr", variables, CFG)
+
+
 def test_winograd_state_dict_names_match_direct():
-    direct = build_model(CFG, 1, 1, "f32").state_dict()
-    wino = build_model(dict(CFG, winograd=4), 1, 1, "f32").state_dict()
+    direct = build_model(CFG, 1, 1, "f32", device="cpu").state_dict()
+    wino = build_model(dict(CFG, winograd=4), 1, 1, "f32", device="cpu").state_dict()
     assert list(direct) == list(wino)
     assert "body.0.body.1.body.3.conv_du.2.weight" in direct
     assert {"head.0.weight", "body.0.body.2.weight", "body.1.bias",
@@ -78,9 +95,9 @@ def test_winograd_u_cache_follows_weight_loads():
 
 
 def test_seeded_init_is_reproducible_and_torch_default():
-    a = build_model(CFG, 1, 1, "f32", seed=3).state_dict()
-    b = build_model(CFG, 1, 1, "f32", seed=3).state_dict()
-    c = build_model(CFG, 1, 1, "f32", seed=4).state_dict()
+    a = build_model(CFG, 1, 1, "f32", seed=3, device="cpu").state_dict()
+    b = build_model(CFG, 1, 1, "f32", seed=3, device="cpu").state_dict()
+    c = build_model(CFG, 1, 1, "f32", seed=4, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["head.0.weight"], c["head.0.weight"])
     w = a["body.0.body.0.body.0.weight"]          # fan_in = 8 * 9
@@ -91,25 +108,33 @@ def test_unported_knobs_raise_and_tpu_knobs_are_ignored():
     for extra in (dict(fused=True), dict(quantization="int8_fused"),
                   dict(pervar_heads=True), dict(name="edsr")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dict(CFG, **extra), 1, 1, "f32")
-    ref = build_model(CFG, 1, 1, "f32").state_dict()
+            build_model(dict(CFG, **extra), 1, 1, "f32", device="cpu")
+    ref = build_model(CFG, 1, 1, "f32", device="cpu").state_dict()
     knobs = build_model(dict(CFG, lane_pack=2, winograd_bs=4, scan_groups=True,
-                             remat_trunk=True), 1, 1, "f32").state_dict()
+                             remat_trunk=True), 1, 1, "f32",
+                        device="cpu").state_dict()
     assert list(ref) == list(knobs)
 
 
 def test_winograd_is_forward_only():
-    model = build_model(dict(CFG, winograd=2), 1, 1, "f32")
+    """Forward-only where no gradient is recorded: under no_grad the trunk
+    takes the plain forward path (no autograd graph), under grad the
+    Winograd Functions, whose gradients reach every parameter. The
+    geometry check holds on both."""
+    model = build_model(dict(CFG, winograd=2), 1, 1, "f32", device="cpu")
     x = torch.zeros(1, 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        model(x)
+    with torch.no_grad():
+        assert model(x).grad_fn is None
+    model(x).sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
     with pytest.raises(ValueError, match="multiples of the tile size"), torch.no_grad():
         model(torch.zeros(1, 1, 7, 7))
 
 
 def test_bf16_compute_over_f32_params(jax_rcan):
     x, variables, want = jax_rcan
-    model = build_model(dict(CFG, winograd=4), 1, 1, precision="bf16")
+    model = build_model(dict(CFG, winograd=4), 1, 1, precision="bf16",
+                        device="cpu")
     model.load_state_dict(state_dict_from_jax(variables, CFG), strict=True)
     assert all(p.dtype == torch.float32 for p in model.parameters())
     with torch.inference_mode():
@@ -124,6 +149,8 @@ def test_device_and_precision_resolution(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        build_model(CFG, 1, 1, "f32")             # the card is the default
     with pytest.raises(ValueError):
         resolve_device("auto")
     assert compute_dtype("bf16") is torch.bfloat16
