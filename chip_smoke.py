@@ -26,7 +26,25 @@ Phases, one line each (every line carries the card's name and power limit):
    build_train_step (Adam, lr 1e-4, b72, 1×192×192 HR tiles): one step's
    loss and gradients against the plain twins, three Adam steps with their
    launch counts, ms/step and trained tiles/s against the direct cuDNN
-   trunk under autograd, peak memory and a device-time profile of a step.
+   trunk under autograd, peak memory and a device-time profile of a step;
+10. kernel (e), window attention, against its plain twin at the SwinIR
+   serving shape (1728 windows of 64 tokens, C 64, 4 heads), unshifted and
+   shifted (the 144-window group mask), timed against the composition
+   F.linear → F.scaled_dot_product_attention → F.linear;
+11. kernel (f), the window-attention backward, against its plain twin: dx
+   and the five weight gradients, unshifted and shifted, timed against the
+   composition's autograd backward;
+12. SwinIR ×4 serving (config/model/swinir.yaml, bf16) through build_model →
+   build_eval_step for three requests of 12 HR tiles of 1×384×384 (96×96
+   LR, config/task/SST-tiles-96.yaml), 16 window-attention launches each,
+   held against the same model on the plain twins, timed in turns against
+   the same weights on the composition attention, and profiled;
+13. SwinIR ×4 training: build_optimizer (Adam, lr 2e-4) → build_train_step
+   at batch 12: one step's loss and gradients against the plain twins,
+   three Adam steps on one batch (16 window_attention and 16
+   window_attention_bwd launches each; the loss must fall), ms/step,
+   trained tiles/s and peak memory against the composition attention, and
+   a profile.
 
 Tolerances: f32 max|kernel − plain| ≤ 3e-5·max|plain| (group 1e-4, and
 1e-2 for a group's gradients when a ReLU gate flipped between the kernel
@@ -39,10 +57,12 @@ Bounds: ``bound_ms`` is the larger of the bytes a call must move (each
 input read once, each output written once) over 3.35 TB/s and its tensor-
 core products over 989 TFLOP/s (bf16), for the timed call's shapes.
 ``library_ms`` times one PyTorch call computing the same function where one
-exists (cuDNN's conv and conv backward); the port never calls it.
+exists (cuDNN's conv and conv backward), and for window attention the
+composition above; the port never calls them.
 
 The last three lines are a JSON object describing every kernel of the path
-(``launches`` counted over the train slice's three steps only), the card's
+(``launches`` counted over the three steps of each train slice, phases 9
+and 13; ``serve_launches`` over the three requests of phases 5 and 12), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
 """
@@ -75,6 +95,15 @@ TASK_CFG = dict(input_variables=["SST"], target_variables=["SST"],
 TRAIN_TASK = dict(TASK_CFG, lr=1e-4)
 BATCH, HR, NREQ, NSTEP = 72, 192, 3, 3
 SHAPE = (BATCH, 64, 48, 48)
+# config/model/swinir.yaml; config/task/SST-tiles-96.yaml: 96×96 LR tiles
+# (1×384×384 HR), batch 12, Adam lr 2e-4
+SWIN_CFG = dict(name="swinir", nfeatures=64, nlayers=4, nblocks=4, window_size=8,
+                num_heads=4, mlp_ratio=2.0, loss_fn="l2", kernel_size=3,
+                downscale_factors=[2, 2], ups_mode="bicubic", fused_attention=True)
+SWIN_TRAIN_TASK = dict(TASK_CFG, lr=2e-4)
+SWIN_BATCH, TILE96 = 12, 96
+SWIN_HR = 4 * TILE96
+SWIN_NW = SWIN_BATCH * (TILE96 // SWIN_CFG["window_size"]) ** 2
 
 F32_TOL, GROUP_F32_TOL = 3e-5, 1e-4
 # one group's f32 gradients where a ReLU gate flipped between the kernel and
@@ -129,6 +158,11 @@ def check_pair(name, k32, p32, kbf, pbf, f32_tol=F32_TOL) -> dict:
 def bound_ms(nbytes: float, flops: float) -> float:
     """Least time for the work: bytes over HBM rate vs products over peak."""
     return 1e3 * max(nbytes / HBM_BYTES_S, flops / BF16_FLOP_S)
+
+
+def bound_by(nbytes: float, flops: float) -> str:
+    """Which of the two bounds ``bound_ms`` takes."""
+    return "bytes" if nbytes / HBM_BYTES_S >= flops / BF16_FLOP_S else "operations"
 
 
 def tap_flops(shape, m: int) -> float:
@@ -308,7 +342,7 @@ def phase_group(dev, seed):
 def phase_slice(dev, seed):
     import torch
     from sres_tpu_torch.models import build_model
-    from sres_tpu_torch.models.wino_blocks import set_plain_twins
+    from sres_tpu_torch.models.layers import set_plain_twins
     from sres_tpu_torch.ops import winograd_conv as wc
     from sres_tpu_torch.trainer.step import build_eval_step, make_step_config
 
@@ -592,7 +626,7 @@ def _loss_and_grads(model, sc, hr, weight):
 def phase_train(dev, seed):
     import torch
     from sres_tpu_torch.models import build_model
-    from sres_tpu_torch.models.wino_blocks import set_plain_twins
+    from sres_tpu_torch.models.layers import set_plain_twins
     from sres_tpu_torch.ops import winograd_conv as wc
     from sres_tpu_torch.ops.winograd import transform_weights
     from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
@@ -716,6 +750,339 @@ def phase_train(dev, seed):
     return total
 
 
+# ------------------------------------------------- SwinIR (phases 10-13)
+def _wattn_operands(dev, rng):
+    """Window-attention operands at the serving slice's shapes: x (1728, 64,
+    64), the JAX-layout weights (torch-default scale), a 0.02-scale
+    relative-position bias (h, T, T) and the 96×96 tiles' shifted-window
+    group mask (144, T, T)."""
+    import torch
+    from sres_tpu_torch.models.swinir import shift_attn_mask
+    t, c, h = SWIN_CFG["window_size"] ** 2, SWIN_CFG["nfeatures"], SWIN_CFG["num_heads"]
+    u = lambda *s: torch.from_numpy(rng.uniform(-1 / 8, 1 / 8, s).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(SWIN_NW, t, c)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy(rng.normal(scale=0.02, size=(h, t, t)).astype(np.float32)).to(dev)
+    side = TILE96
+    mask = torch.from_numpy(shift_attn_mask(side, side, SWIN_CFG["window_size"],
+                                            SWIN_CFG["window_size"] // 2)).to(dev)
+    return x, [u(c, 3 * c), u(3 * c), u(c, c), u(c), bias], mask
+
+
+def _composition(x, wqkv, bqkv, wo, bo, bias, mask, heads):
+    """The library yardstick for window attention: F.linear →
+    F.scaled_dot_product_attention (attn_mask = bias + tiled mask) →
+    F.linear, in x.dtype. Never called by the port."""
+    import torch.nn.functional as F
+    nw, t, c = x.shape
+    dt = x.dtype
+    am = bias[None]
+    if mask is not None:
+        am = (am + mask[:, None]).repeat(nw // mask.shape[0], 1, 1, 1)
+    qkv = F.linear(x, wqkv.to(dt).T, bqkv.to(dt)).reshape(nw, t, 3, heads, c // heads)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=am.to(dt))
+    return F.linear(o.transpose(1, 2).reshape(nw, t, c), wo.to(dt).T, bo.to(dt))
+
+
+def _wattn_flops(nw: int) -> dict:
+    t, c, h = SWIN_CFG["window_size"] ** 2, SWIN_CFG["nfeatures"], SWIN_CFG["num_heads"]
+    proj = 2.0 * nw * t * c * c            # one (T, C) @ (C, C) product
+    core = 2.0 * nw * h * t * t * (c // h)  # q·kᵀ or p·v over all heads
+    return dict(proj=proj, core=core)
+
+
+def phase_wattn(dev, rng):
+    import torch
+    from sres_tpu_torch.ops import window_attention as twa
+    x, ws, mask = _wattn_operands(dev, rng)
+    h, xb = SWIN_CFG["num_heads"], x.bfloat16()
+    worst = 0.0
+    for m in (None, mask):
+        name = "window_attention " + ("shifted" if m is not None else "unshifted")
+        out = check_pair(name, twa.window_attention(x, *ws, m, h),
+                         twa.window_attention_plain(x, *ws, m, h),
+                         twa.window_attention(xb, *ws, m, h),
+                         twa.window_attention_plain(xb, *ws, m, h))
+        comp = _composition(x, *ws, m, h)
+        torch.cuda.synchronize()
+        out["composition_f32_rel"] = rel_err(comp, twa.window_attention_plain(x, *ws, m, h))
+        say("10 kernel window_attention", **out)
+        worst = max(worst, out["bf16_vs_plain_abs"])
+    timing = {}
+    for label, m in (("unshifted", None), ("shifted", mask)):
+        timing[label] = dict(
+            ms=time_ms(lambda: twa.window_attention(xb, *ws, m, h)),
+            plain_ms=time_ms(lambda: twa.window_attention_plain(xb, *ws, m, h), iters=3),
+            library_ms=time_ms(lambda: _composition(xb, *ws, m, h)))
+    fl = _wattn_flops(SWIN_NW)
+    flops = 4 * fl["proj"] + 2 * fl["core"]   # qkv (3 C wide), o·wo; q·kᵀ, p·v
+    # x read and y written (bf16), the group mask (f32), weights (bf16),
+    # biases and the (h, T, T) bias (f32)
+    nbytes = 2 * 2 * xb.numel() + 4 * mask.numel() + 2 * (ws[0].numel() + ws[2].numel()) \
+        + 4 * (ws[1].numel() + ws[3].numel() + ws[4].numel())
+    bound, by = bound_ms(nbytes, flops), bound_by(nbytes, flops)
+    say("10 kernel window_attention timing", nw=SWIN_NW, dtype="bf16", **timing,
+        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    t = timing["shifted"]
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bound,
+                bound_by=by, library_ms=t["library_ms"])
+
+
+def phase_wattn_bwd(dev, rng):
+    import torch
+    from sres_tpu_torch.ops import window_attention as twa
+    x, ws, mask = _wattn_operands(dev, rng)
+    g = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+    h, xb, gb = SWIN_CFG["num_heads"], x.bfloat16(), g.bfloat16()
+    names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
+    worst = 0.0
+    for m in (None, mask):
+        outs = [fn(x.to(dt), g.to(dt), *ws, m, h) for fn, dt in (
+            (twa.window_attention_bwd, torch.float32), (twa.window_attention_bwd_plain, torch.float32),
+            (twa.window_attention_bwd, torch.bfloat16), (twa.window_attention_bwd_plain, torch.bfloat16))]
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            out = check_pair(f"window_attention_bwd {'shifted' if m is not None else 'unshifted'} "
+                             f"{name}", *(o[i] for o in outs))
+            say("11 kernel window_attention_bwd", **out)
+            worst = max(worst, out["bf16_vs_plain_abs"])
+        del outs
+
+    def library_backward(m):
+        """The composition's autograd backward alone (its forward kept)."""
+        leaves = [xb.detach().requires_grad_()] + [w.detach().requires_grad_() for w in ws]
+        y = _composition(*leaves[:6], m, h)
+        return lambda: torch.autograd.grad(y, leaves, gb, retain_graph=True)
+
+    timing = {}
+    for label, m in (("unshifted", None), ("shifted", mask)):
+        timing[label] = dict(
+            ms=time_ms(lambda: twa.window_attention_bwd(xb, gb, *ws, m, h)),
+            plain_ms=time_ms(lambda: twa.window_attention_bwd_plain(xb, gb, *ws, m, h), iters=3),
+            library_ms=time_ms(library_backward(m)))
+    fl = _wattn_flops(SWIN_NW)
+    # recompute (qkv, q·kᵀ, p·v); dwo, do; dv, dp, dq, dk; dwqkv, dx
+    flops = (3 + 2 + 3 + 3) * fl["proj"] + 6 * fl["core"]
+    # x and g read and dx written (bf16); the mask; weights read (bf16);
+    # f32 biases read and every weight gradient written (f32)
+    nbytes = 3 * 2 * xb.numel() + 4 * mask.numel() \
+        + 2 * (ws[0].numel() + ws[2].numel()) + 4 * sum(w.numel() for w in ws) \
+        + 4 * (ws[1].numel() + ws[3].numel() + ws[4].numel())
+    bound, by = bound_ms(nbytes, flops), bound_by(nbytes, flops)
+    say("11 kernel window_attention_bwd timing", nw=SWIN_NW, dtype="bf16", **timing,
+        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
+    t = timing["shifted"]
+    return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bound,
+                bound_by=by, library_ms=t["library_ms"])
+
+
+def _composition_forward(self, win, mask=None):
+    """WindowAttention.forward on the library composition (timing only)."""
+    t = self.window_size ** 2
+    bias = self.relative_position_bias_table[self.relative_position_index]
+    bias = bias.reshape(t, t, self.num_heads).permute(2, 0, 1).float()
+    return _composition(win, self.qkv.weight.T, self.qkv.bias, self.proj.weight.T,
+                        self.proj.bias, bias, mask, self.num_heads)
+
+
+def use_composition(model, on: bool) -> None:
+    """Route every window attention of ``model`` through the composition
+    (True) or back to its own forward (False)."""
+    import types
+    from sres_tpu_torch.models.swinir import WindowAttention
+    for mod in model.modules():
+        if isinstance(mod, WindowAttention):
+            if on:
+                mod.forward = types.MethodType(_composition_forward, mod)
+            else:
+                mod.__dict__.pop("forward", None)
+
+
+def _windows(run, names, n):
+    """Median ms per call of each of ``names`` in turns (n calls a window,
+    3 windows each after a warm-up), with every window's reading."""
+    import torch
+    def window(name):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for i in range(n):
+            run(name, i)
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / n
+    for name in names:
+        window(name)
+    out = {}
+    for name in list(names) + list(reversed(names)) + list(names):
+        out.setdefault(name, []).append(window(name))
+    return {k: (statistics.median(v), v) for k, v in out.items()}
+
+
+def phase_swin_serve(dev, seed):
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    from sres_tpu_torch.ops import window_attention as twa
+    from sres_tpu_torch.trainer.step import build_eval_step, make_step_config
+    model = build_model(SWIN_CFG, 1, 1, precision="bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, SWIN_CFG)
+    eval_step = build_eval_step(model, sc)
+    rng = np.random.default_rng(seed + 3)
+    reqs = [torch.from_numpy(smooth_fields(rng, SWIN_BATCH, SWIN_HR)).to(dev)
+            for _ in range(NREQ)]
+    weight = torch.ones(SWIN_BATCH, device=dev)
+    eval_step(reqs[0], weight)
+    torch.cuda.synchronize()
+    twa.reset_launches()
+    results = [eval_step(hr, weight) for hr in reqs]
+    torch.cuda.synchronize()
+    launches = dict(twa.LAUNCHES)
+    for i, (met, (lr, out, tar, interp)) in enumerate(results):
+        s, si = float(met["sloss"]), float(met["interp_sloss"])
+        say("12 swinir request", request=i, sloss=s, interp_sloss=si,
+            ratio_pct=100.0 * s / si, out_shape=list(out.shape))
+        if not (math.isfinite(s) and math.isfinite(si) and si > 0
+                and tuple(out.shape) == (SWIN_BATCH, 1, SWIN_HR, SWIN_HR)
+                and bool(torch.isfinite(out).all())):
+            raise CheckFailed(f"swinir request {i}: non-finite or misshapen output")
+    nattn = SWIN_CFG["nlayers"] * SWIN_CFG["nblocks"]
+    want = {"window_attention": NREQ * nattn, "window_attention_bwd": 0}
+    say("12 swinir launches", launches=launches, expected=want)
+    if launches != want:
+        raise CheckFailed(f"swinir launches {launches} != expected {want}")
+
+    out_k = results[0][1][1]
+    set_plain_twins(model, True)
+    out_p = eval_step(reqs[0], weight)[1][1]
+    set_plain_twins(model, False)
+    ref = build_model(SWIN_CFG, 1, 1, precision="f32", device=dev)
+    ref.load_state_dict(model.state_dict())
+    set_plain_twins(ref, True)
+    out_t = build_eval_step(ref, sc)(reqs[0], weight)[1][1]
+    del ref
+    e_k, e_p = rel_err(out_k, out_t), rel_err(out_p, out_t)
+    say("12 swinir vs plain", bf16_kernel_rel=e_k, bf16_plain_rel=e_p,
+        bound=2 * e_p + 1e-4, kernel_vs_plain_abs=float((out_k - out_p).abs().max()))
+    if not e_k <= 2 * e_p + 1e-4:
+        raise CheckFailed(f"swinir output outside the bf16 envelope: {e_k} > 2*{e_p}+1e-4")
+
+    def run(name, i):
+        use_composition(model, name == "composition")
+        eval_step(reqs[i % NREQ], weight)
+    timing = _windows(run, ("kernel", "composition"), NREQ)
+    use_composition(model, False)
+    for name, (med, ws) in timing.items():
+        say(f"12 swinir timing {name}", windows_ms_per_request=ws, ms_per_request=med,
+            tiles_per_s=SWIN_BATCH / (med / 1e3))
+    busy = {}
+    for name in ("kernel", "composition"):
+        use_composition(model, name == "composition")
+        busy[name] = profile_device(f"12 swinir profile {name}",
+                                    lambda: eval_step(reqs[0], weight), top=14)
+    use_composition(model, False)
+    say("12 swinir summary", **{f"{k}_ms_per_request": v[0] for k, v in timing.items()},
+        **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy})
+    return launches
+
+
+def phase_swin_train(dev, seed):
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    from sres_tpu_torch.ops import window_attention as twa
+    from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
+                                             make_step_config)
+    model = build_model(SWIN_CFG, 1, 1, "bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, SWIN_CFG)
+    rng = np.random.default_rng(seed + 4)
+    batches = [torch.from_numpy(smooth_fields(rng, SWIN_BATCH, SWIN_HR)).to(dev)
+               for _ in range(NSTEP)]
+    weight = torch.ones(SWIN_BATCH, device=dev)
+
+    # one step's loss and gradients: kernels (bf16) and plain twins (bf16)
+    # against the plain twins in f32, per Swin group and the rest
+    ref = build_model(SWIN_CFG, 1, 1, "f32", device=dev)
+    ref.load_state_dict(model.state_dict())
+    set_plain_twins(ref, True)
+    lt, gt = _loss_and_grads(ref, sc, batches[0], weight)
+    del ref
+    lk, gk = _loss_and_grads(model, sc, batches[0], weight)
+    set_plain_twins(model, True)
+    lp, gp = _loss_and_grads(model, sc, batches[0], weight)
+    set_plain_twins(model, False)
+    torch.cuda.synchronize()
+    parts = {f"group{g}": (lambda n, g=g: n.startswith(f"layers.{g}."))
+             for g in range(SWIN_CFG["nlayers"])}
+    parts["attention"] = lambda n: ".attn." in n
+    parts["rest"] = lambda n: not n.startswith("layers.")
+    for part, sel in parts.items():
+        k, p, t = (_cat(v for n, v in gd.items() if sel(n)) for gd in (gk, gp, gt))
+        for v in (k, p, t, lk, lp, lt):
+            if not torch.isfinite(v).all():
+                raise CheckFailed(f"swinir train {part}: non-finite gradient or loss")
+        e_k, e_p = rel_err(k, t), rel_err(p, t)
+        say("13 swinir train step vs plain", part=part, bf16_kernel_rel=e_k,
+            bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
+        if not e_k <= 2 * e_p + 1e-4:
+            raise CheckFailed(f"swinir train {part}: outside the bf16 envelope "
+                              f"{e_k} > 2*{e_p}+1e-4")
+    e_k, e_p = rel_err(lk, lt), rel_err(lp, lt)
+    say("13 swinir train step vs plain", part="loss", bf16_kernel_rel=e_k,
+        bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
+    if not e_k <= 2 * e_p + 1e-4:
+        raise CheckFailed(f"swinir train loss outside the bf16 envelope {e_k} > 2*{e_p}+1e-4")
+    del gk, gp, gt
+
+    step = build_train_step(model, build_optimizer(model, SWIN_TRAIN_TASK), sc)
+    nattn = SWIN_CFG["nlayers"] * SWIN_CFG["nblocks"]
+    want = {"window_attention": nattn, "window_attention_bwd": nattn}
+    torch.cuda.reset_peak_memory_stats(dev)
+    total, losses = dict.fromkeys(want, 0), []
+    # the Adam steps revisit one batch, so that its loss must fall; on fresh
+    # batches the random-weight loss follows each batch's spread instead
+    for i in range(NSTEP):
+        twa.reset_launches()
+        met = step(batches[0], weight)
+        torch.cuda.synchronize()
+        launches = dict(twa.LAUNCHES)
+        vals = {k: float(v) for k, v in met.items()}
+        say("13 swinir train step", step=i, **vals, launches=launches, expected=want)
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise CheckFailed(f"swinir train step {i}: non-finite metrics {vals}")
+        if launches != want:
+            raise CheckFailed(f"swinir train step {i}: launches {launches} != {want}")
+        losses.append(vals["mloss"])
+        for k in total:
+            total[k] += launches[k]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not losses[-1] < losses[0]:
+        raise CheckFailed(f"swinir loss did not fall over {NSTEP} Adam steps: {losses}")
+
+    comp = build_model(SWIN_CFG, 1, 1, "bf16", device=dev)
+    comp.load_state_dict(model.state_dict())
+    use_composition(comp, True)
+    steps = {"kernel": step,
+             "composition": build_train_step(comp, build_optimizer(comp, SWIN_TRAIN_TASK), sc)}
+    timing = _windows(lambda name, i: steps[name](batches[i % NSTEP], weight),
+                      ("kernel", "composition"), 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps["composition"](batches[0], weight)
+    torch.cuda.synchronize()
+    peak_comp_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    for name, (med, ws) in timing.items():
+        say(f"13 swinir train timing {name}", windows_ms_per_step=ws,
+            median_ms_per_step=med, tiles_per_s=SWIN_BATCH / (med / 1e3))
+    busy = {name: profile_device(f"13 swinir train profile {name}",
+                                 lambda: steps[name](batches[0], weight), top=14)
+            for name in ("kernel", "composition")}
+    say("13 swinir train summary",
+        **{f"{k}_ms_per_step": v[0] for k, v in timing.items()},
+        **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy},
+        peak_mem_gb_kernel=peak_gb, peak_mem_gb_composition_step=peak_comp_gb,
+        losses=losses)
+    return total
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -750,14 +1117,21 @@ def main() -> int:
     kern["ca_skip_bwd"] = phase_ca_bwd(dev, rng)
     phase_group_bwd(dev, args.seed)
     launches = phase_train(dev, args.seed)
+    kern["window_attention"] = phase_wattn(dev, rng)
+    kern["window_attention_bwd"] = phase_wattn_bwd(dev, rng)
+    serve_launches.update(phase_swin_serve(dev, args.seed))
+    launches.update(phase_swin_train(dev, args.seed))
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
     bwd_src = "sres_tpu_torch/ops/cuda/winograd_bwd.cu"
+    wa_src = "sres_tpu_torch/ops/cuda/window_attention.cu"
     where = {"wino_conv": (src, "sres_tpu/ops/pallas/winograd_conv.py:81"),
              "ca_skip": (src, "sres_tpu/ops/pallas/winograd_conv.py:454"),
              "wino_conv_bwd": (bwd_src, "sres_tpu/ops/pallas/winograd_conv.py:212"),
-             "ca_skip_bwd": (bwd_src, "sres_tpu/ops/pallas/wino_group_grad.py:324")}
+             "ca_skip_bwd": (bwd_src, "sres_tpu/ops/pallas/wino_group_grad.py:324"),
+             "window_attention": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
+             "window_attention_bwd": (wa_src, "sres_tpu/ops/pallas/window_attention.py:84")}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
              launches=launches[k], serve_launches=serve_launches[k], **kern[k])

@@ -9,14 +9,20 @@ NHWC.
 
 Slices ported so far: RCAN's serving/eval path and its train step (direct
 convs, or ``model.winograd: 2|4`` with the forward and backward of every
-trunk conv on the CUDA Winograd kernels).
+trunk conv on the CUDA Winograd kernels), and SwinIR's serving and train
+step with every window attention, forward and backward, on the CUDA
+window-attention kernels.
 
   device      — device and compute-dtype resolution
-  ops         — resize, Winograd math, kernel wrappers + plain twins and
-                their autograd Functions, CUDA
-  models      — RCAN, its layers and the Winograd trunk blocks, registry
+  ops         — resize, Winograd math, window attention, kernel wrappers +
+                plain twins and their autograd Functions, CUDA
+  models      — RCAN, SwinIR, their layers and the Winograd trunk blocks,
+                registry
   trainer     — losses, the train and eval steps, the optimizer
-  util        — weight transfer from JAX variable trees (RCAN)
+  util        — weight transfer from JAX variable trees (RCAN, SwinIR)
+
+CPU tests: ``tests/test_torch_*.py`` (plain twins against the JAX package);
+card: ``python3 chip_smoke.py`` (phases 10-13 are SwinIR's).
 """
 
 __version__ = "0.1.0"

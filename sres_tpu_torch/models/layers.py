@@ -1,5 +1,6 @@
-"""RCAN building blocks in PyTorch (counterparts of sres_tpu/models/layers.py
-:193-223 Conv, :352-445 CALayer/RCAB/ResidualGroup, :497-530 SPUpsample).
+"""Building blocks in PyTorch (counterparts of sres_tpu/models/layers.py
+:193-223 Conv, :352-445 CALayer/RCAB/ResidualGroup, :497-530 SPUpsample; and
+flax's Dense and LayerNorm as SwinIR uses them).
 
 Module and parameter names follow the reference torch networks
 (sres/model/rcan/network.py, common/upsample.py) — the naming that
@@ -97,17 +98,51 @@ class SPUpsample(nn.Sequential):
         super().__init__(*stages)
 
 
+class Linear(nn.Linear):
+    """Dense layer computing in its input's dtype (the flax ``nn.Dense``
+    with ``dtype=``); torch-default init."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm``: ε = 1e-6, statistics and affine in f32, the
+    result in the input's dtype."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
 @torch.no_grad()
 def init_torch_default(model: nn.Module, seed: int) -> nn.Module:
-    """Re-draw every conv's weight and bias from U(±1/sqrt(fan_in)) — torch's
-    Conv2d default (kaiming_uniform a=√5) — with one seeded generator, in
-    module order."""
+    """Re-draw every conv's and linear layer's weight and bias from
+    U(±1/sqrt(fan_in)) — torch's Conv2d and Linear default (kaiming_uniform
+    a=√5) — with one seeded generator, in module order; a module with an
+    ``init_seeded(gen)`` method draws its own parameters from the same
+    generator at its place in that order. LayerNorm keeps ones and zeros."""
     gen = torch.Generator().manual_seed(int(seed))
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
-            bound = 1.0 / math.sqrt(mod.in_channels * mod.kernel_size[0]
-                                    * mod.kernel_size[1])
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            bound = 1.0 / math.sqrt(mod.weight[0].numel())
             mod.weight.uniform_(-bound, bound, generator=gen)
             if mod.bias is not None:
                 mod.bias.uniform_(-bound, bound, generator=gen)
+        elif hasattr(mod, "init_seeded"):
+            mod.init_seeded(gen)
+    return model
+
+
+def set_plain_twins(model: nn.Module, plain: bool) -> nn.Module:
+    """Route every kernel-backed module of ``model`` (those with a ``plain``
+    flag: the Winograd trunk, window attention) through the plain twins
+    (True) or the kernels (False)."""
+    for mod in model.modules():
+        if hasattr(mod, "plain"):
+            mod.plain = plain
     return model

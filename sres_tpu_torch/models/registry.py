@@ -1,12 +1,14 @@
 """Model factory (counterpart of sres_tpu/models/registry.py): model config
-→ ``nn.Module``. Only ``rcan`` is ported; every other name raises.
+→ ``nn.Module``. ``rcan`` and ``swinir`` are ported; every other name
+raises.
 
 ``build_model`` returns an f32-parameter module on ``device`` (the card by
 default; ``device="cpu"`` only when asked, and an error when the card is
 asked for and absent) whose forward computes in the dtype of
 ``precision``. With ``seed`` the parameters are drawn from torch's default
-conv init by one seeded ``torch.Generator`` on the CPU (reproducible across
-runs and machines), then moved.
+conv and linear init (SwinIR's bias tables from a truncated normal) by one
+seeded ``torch.Generator`` on the CPU (reproducible across runs and
+machines), then moved.
 """
 from __future__ import annotations
 
@@ -46,14 +48,15 @@ def build_model(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
                 device: str = "cuda"):
     dev = resolve_device(device)
     name = model_cfg["name"]
-    if name != "rcan":
+    from sres_tpu_torch.models import rcan, swinir
+    from sres_tpu_torch.models.layers import init_torch_default
+    builders = {"rcan": rcan.build, "swinir": swinir.build}
+    if name not in builders:
         raise NotImplementedError(
             f"model '{name}' is not ported yet (ROADMAP Queue 1 item 8); "
-            "available: ['rcan']")
-    from sres_tpu_torch.models import rcan
-    from sres_tpu_torch.models.layers import init_torch_default
-    model = rcan.build(model_cfg, nchannels_in, nchannels_out,
-                       dtype=compute_dtype(precision))
+            f"available: {sorted(builders)}")
+    model = builders[name](model_cfg, nchannels_in, nchannels_out,
+                           dtype=compute_dtype(precision))
     if seed is not None:
         init_torch_default(model, seed)
     return model.to(dev)

@@ -16,7 +16,7 @@ parameter's gradient; U is rebuilt after every optimizer step. Under
 ``torch.no_grad()`` or ``torch.inference_mode()`` they run the
 forward-only path.
 
-``plain = True`` (see ``set_plain_twins``) routes a module through the
+``plain = True`` (see ``layers.set_plain_twins``) routes a module through the
 kernels' plain-torch twins on any device; it exists for on-card
 comparisons of the kernel path with its reference.
 """
@@ -149,11 +149,3 @@ class WinoResidualGroup(ResidualGroup):
         ws, bv, cw1, cb1, cw2, cb2, wt, bt = ops
         return fn(x, ws, bv, cw1, cb1, cw2, cb2, self.m, wt, bt)
 
-
-def set_plain_twins(model: nn.Module, plain: bool) -> nn.Module:
-    """Route every Winograd module of ``model`` through the plain twins
-    (True) or the kernels (False)."""
-    for mod in model.modules():
-        if isinstance(mod, (WinoConv, WinoResidualGroup)):
-            mod.plain = plain
-    return model

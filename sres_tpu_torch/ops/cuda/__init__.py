@@ -63,6 +63,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_wino_conv_bwd.argtypes = [vp] * 14 + [i] * 9 + [vp]
     lib.sres_ca_skip_bwd.restype = i
     lib.sres_ca_skip_bwd.argtypes = [vp] * 14 + [i] * 6 + [vp]
+    lib.sres_wattn_tokens.restype = i
+    lib.sres_wattn_tokens.argtypes = []
+    f = ctypes.c_float
+    lib.sres_wattn_fwd.restype = i
+    lib.sres_wattn_fwd.argtypes = [vp] * 8 + [i] * 3 + [f] + [i] * 2 + [vp]
+    lib.sres_wattn_bwd.restype = i
+    lib.sres_wattn_bwd.argtypes = [vp] * 11 + [i] * 3 + [f] + [i] * 3 + [vp]
     return lib
 
 

@@ -1,7 +1,8 @@
-// Helpers shared by the Winograd kernels of this directory (winograd.cu,
-// winograd_bwd.cu): channel count, type conversions, the transform
-// programs of sres_tpu/ops/winograd.py (same operation order), the input
-// transform of one (tile, channel), the bf16 mma.sync wrapper.
+// Helpers shared by the kernels of this directory (winograd.cu,
+// winograd_bwd.cu, window_attention.cu): channel count, type conversions,
+// the transform programs of sres_tpu/ops/winograd.py (same operation
+// order), the input transform of one (tile, channel), the bf16 mma.sync
+// wrapper, the fixed-order sum of f32 partials.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -196,6 +197,18 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   done = e == cudaSuccess;
   return e;
+}
+
+// out[o][i] = sum_s part[o][s][i], in order of s
+__global__ void __launch_bounds__(kThreads)
+sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
+                    int nouter, int nsplit, int inner) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long long)nouter * inner) return;
+  const int o = (int)(idx / inner), i = (int)(idx % inner);
+  float t = 0.0f;
+  for (int s = 0; s < nsplit; ++s) t += part[((size_t)o * nsplit + s) * inner + i];
+  out[idx] = t;
 }
 
 }  // namespace

@@ -358,18 +358,6 @@ wino_du_kernel(const T* __restrict__ vbuf, const T* __restrict__ dmbuf,
   }
 }
 
-// out[o][i] = sum_s part[o][s][i], in order of s
-__global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                    int nouter, int nsplit, int inner) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= (long long)nouter * inner) return;
-  const int o = (int)(idx / inner), i = (int)(idx % inner);
-  float t = 0.0f;
-  for (int s = 0; s < nsplit; ++s) t += part[((size_t)o * nsplit + s) * inner + i];
-  out[idx] = t;
-}
-
 // ------------------------------------------------ (K2) channel attention
 // (K2.1) per (sample, chunk): partial sums of c2 and of da * c2 per channel
 template <typename T>

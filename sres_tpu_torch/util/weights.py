@@ -5,8 +5,11 @@ load with ``strict=True``.
 The port keeps its own copy of the RCAN part of the JAX package's exporter
 (sres_tpu/util/torch_export.py:27-127 and the ``rcan`` branch of
 ``export_variables`` :380-391), so that it imports nothing of the JAX
-package. Layout: flax conv kernels (kh, kw, Cin, Cout) → torch (Cout, Cin,
-kh, kw). The other architectures are not ported.
+package; SwinIR's (``export_swinir``), which the JAX package lacks, maps
+both of its attention trees onto the public SwinIR's names. Layout: flax
+conv kernels (kh, kw, Cin, Cout) → torch (Cout, Cin, kh, kw), Dense kernels
+(in, out) → Linear weights (out, in). The other architectures are not
+ported.
 """
 from __future__ import annotations
 
@@ -66,17 +69,63 @@ def export_rcan(params: Dict[str, Any], nlayers: int, nblocks: int,
     return tw
 
 
+def _dense_out(tw: TorchState, name: str, node: Dict[str, Any]) -> None:
+    tw[f"{name}.weight"] = np.asarray(node["kernel"]).T
+    tw[f"{name}.bias"] = np.asarray(node["bias"])
+
+
+def export_swinir(params: Dict[str, Any], nlayers: int, nblocks: int,
+                  scale: int = 4) -> TorchState:
+    """flax SwinIR params (sres_tpu/models/swinir.py; either attention
+    module) → the public SwinIR's state dict names. JAX tree: ``Conv_0``
+    (head), ``SwinBlock_{g·nblocks+b}``, ``Conv_{1+g}`` (group convs),
+    ``Conv_{nlayers+1}`` (body), ``SPUpsample_0``, ``Conv_{nlayers+2}``
+    (tail). The fused attention holds wqkv (C, 3C), bqkv (1, 3C), wo (C, C),
+    bo (1, C) and rel_bias; the unfused one Dense_0 (qkv), Dense_1 (proj)
+    and rel_bias."""
+    tw: TorchState = {}
+    _conv_out(tw, "conv_first", params["Conv_0"])
+    for g in range(nlayers):
+        for b in range(nblocks):
+            blk = params[f"SwinBlock_{g * nblocks + b}"]
+            base = f"layers.{g}.residual_group.blocks.{b}"
+            for i, norm in enumerate(("norm1", "norm2")):
+                tw[f"{base}.{norm}.weight"] = np.asarray(blk[f"LayerNorm_{i}"]["scale"])
+                tw[f"{base}.{norm}.bias"] = np.asarray(blk[f"LayerNorm_{i}"]["bias"])
+            if "FusedWindowAttention_0" in blk:
+                a = blk["FusedWindowAttention_0"]
+                tw[f"{base}.attn.qkv.weight"] = np.asarray(a["wqkv"]).T
+                tw[f"{base}.attn.qkv.bias"] = np.asarray(a["bqkv"]).reshape(-1)
+                tw[f"{base}.attn.proj.weight"] = np.asarray(a["wo"]).T
+                tw[f"{base}.attn.proj.bias"] = np.asarray(a["bo"]).reshape(-1)
+            else:
+                a = blk["WindowAttention_0"]
+                _dense_out(tw, f"{base}.attn.qkv", a["Dense_0"])
+                _dense_out(tw, f"{base}.attn.proj", a["Dense_1"])
+            tw[f"{base}.attn.relative_position_bias_table"] = np.asarray(a["rel_bias"])
+            _dense_out(tw, f"{base}.mlp.fc1", blk["Dense_0"])
+            _dense_out(tw, f"{base}.mlp.fc2", blk["Dense_1"])
+        _conv_out(tw, f"layers.{g}.conv", params[f"Conv_{1 + g}"])
+    _conv_out(tw, "conv_after_body", params[f"Conv_{nlayers + 1}"])
+    _export_upsampler(tw, params["SPUpsample_0"], scale, base="upsample")
+    _conv_out(tw, "conv_last", params[f"Conv_{nlayers + 2}"])
+    return tw
+
+
 def export_variables(name: str, variables: Dict[str, Any],
                      model_cfg: Mapping) -> TorchState:
     """flax variables ({'params': .., ['batch_stats': ..]}) → reference torch
-    state dict. Only ``rcan`` is ported."""
-    if name != "rcan":
-        raise NotImplementedError(
-            f"weight export for '{name}' is not ported yet (ROADMAP Queue 1 "
-            "item 8); available: ['rcan']")
-    dsf = list(model_cfg.get("downscale_factors", [2, 2]))
-    return export_rcan(variables["params"], model_cfg["nlayers"],
-                       model_cfg["nblocks"], int(np.prod(dsf)))
+    state dict. ``rcan`` and ``swinir`` are ported."""
+    scale = int(np.prod(list(model_cfg.get("downscale_factors", [2, 2]))))
+    if name == "rcan":
+        return export_rcan(variables["params"], model_cfg["nlayers"],
+                           model_cfg["nblocks"], scale)
+    if name == "swinir":   # nblocks defaults as in sres_tpu/models/swinir.py:207
+        return export_swinir(variables["params"], model_cfg["nlayers"],
+                             model_cfg.get("nblocks", 2), scale)
+    raise NotImplementedError(
+        f"weight export for '{name}' is not ported yet (ROADMAP Queue 1 "
+        "item 8); available: ['rcan', 'swinir']")
 
 
 def state_dict_from_jax(variables_np: Dict[str, Any],

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (forward and backward) against their plain
-twins, on the card.
+"""The port's CUDA kernels (forward and backward: the Winograd conv and
+channel attention, the window attention) against their plain twins, on
+the card.
 
 Imports no JAX, so it runs on a machine that has only torch and a card;
 tests/conftest.py imports JAX, so skip it there:
@@ -168,3 +169,65 @@ def test_bwd_wrappers_reject_what_the_kernels_do_not_take(dev):
         twc.ca_skip_bwd(x.bfloat16(), x.bfloat16(), *ca)
     with pytest.raises(ValueError):            # 32 channels
         twc.ca_skip_bwd(x[:, :32], x[:, :32], *ca)
+
+
+def _wattn_inputs(dev, nw, masked, seed):
+    """Window-attention operands at C = 64, T = 64, h = 4: x (nw, 64, 64),
+    the JAX-layout weights and the shifted-window group mask of 96×96 tiles
+    (144 windows) or of 16×16 tiles (4 windows)."""
+    from sres_tpu_torch.models.swinir import shift_attn_mask
+    rng = np.random.default_rng(seed)
+    ops = [_t(rng, (nw, 64, 64), dev), _t(rng, (64, 192), dev, 0.1),
+           _t(rng, (192,), dev, 0.1), _t(rng, (64, 64), dev, 0.1),
+           _t(rng, (64,), dev, 0.1), _t(rng, (4, 64, 64), dev, 0.02)]
+    side = 96 if nw % 144 == 0 else 16
+    mask = torch.from_numpy(shift_attn_mask(side, side, 8, 4)).to(dev) if masked else None
+    return ops, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [8, 1728])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_matches_twin(dev, nw, masked):
+    """The forward kernel, f32 and bf16, at a small and at the flagship
+    window count (SwinIR ×4 at batch 12 of 96×96 LR tiles)."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _wattn_inputs(dev, nw, masked, 40)
+    launches = twa.LAUNCHES["window_attention"]
+    _check(lambda x_: twa.window_attention(x_, *ws, mask, 4),
+           lambda x_: twa.window_attention_plain(x_, *ws, mask, 4),
+           (x,), (x.bfloat16(),))
+    assert twa.LAUNCHES["window_attention"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [8, 1728])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_bwd_matches_twin(dev, nw, masked):
+    """The backward kernel: dx and the five weight gradients, f32 and bf16."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _wattn_inputs(dev, nw, masked, 41)
+    g = _t(np.random.default_rng(42), tuple(x.shape), dev)
+    launches = twa.LAUNCHES["window_attention_bwd"]
+    run = lambda fn, dt: fn(x.to(dt), g.to(dt), *ws, mask, 4)
+    _check_many(f"window_attention_bwd nw={nw} masked={masked}",
+                run(twa.window_attention_bwd, torch.float32),
+                run(twa.window_attention_bwd_plain, torch.float32),
+                run(twa.window_attention_bwd, torch.bfloat16),
+                run(twa.window_attention_bwd_plain, torch.bfloat16))
+    assert twa.LAUNCHES["window_attention_bwd"] == launches + 2
+
+
+@pytest.mark.cuda
+def test_window_attention_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), _ = _wattn_inputs(dev, 8, False, 43)
+    with pytest.raises(NotImplementedError, match="T = 256"):
+        twa.window_attention(torch.zeros(2, 256, 64, device=dev), *ws[:4],
+                             torch.zeros(4, 256, 256, device=dev), None, 4)
+    with pytest.raises(ValueError):            # head width 64
+        twa.window_attention(x, *ws[:4], ws[4][:1], None, 1)
+    with pytest.raises(ValueError):            # torch-layout (3C, C) weight
+        twa.window_attention(x, ws[0].T, *ws[1:], None, 4)
+    with pytest.raises(ValueError):            # 5 windows per mask group of 4
+        twa.window_attention(x[:5], *ws, torch.zeros(4, 64, 64, device=dev), 4)

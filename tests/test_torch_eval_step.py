@@ -109,10 +109,12 @@ import contextlib, io, json, sys
 sys.path.insert(0, %r)
 sys.argv = ["chip_smoke.py"]
 import chip_smoke, sres_tpu_torch.device, sres_tpu_torch.models
-import sres_tpu_torch.models.rcan, sres_tpu_torch.ops.cuda
+import sres_tpu_torch.models.rcan, sres_tpu_torch.models.swinir
+import sres_tpu_torch.ops.cuda, sres_tpu_torch.ops.window_attention
 import sres_tpu_torch.ops.resize, sres_tpu_torch.ops.winograd_conv
 import sres_tpu_torch.trainer.step, sres_tpu_torch.util.weights
-import numpy as np
+import numpy as np, torch
+from sres_tpu_torch.models import build_model
 from sres_tpu_torch.util.weights import state_dict_from_jax
 conv = lambda k, ci, co: {"kernel": np.zeros((k, k, ci, co), np.float32),
                           "bias": np.zeros(co, np.float32)}
@@ -123,12 +125,28 @@ params = {"Conv_0": conv(3, 1, 4), "Conv_1": conv(3, 4, 4),
           "SPUpsample_0": {"Conv_0": conv(3, 4, 16), "Conv_1": conv(3, 4, 16)},
           "Conv_2": conv(3, 4, 1)}
 sd = state_dict_from_jax({"params": params}, dict(name="rcan", nlayers=1, nblocks=1))
+z = lambda *s: np.zeros(s, np.float32)
+dense = lambda i, o: {"kernel": z(i, o), "bias": z(o)}
+ln = {"scale": z(4), "bias": z(4)}
+attn = {"wqkv": z(4, 12), "bqkv": z(1, 12), "wo": z(4, 4), "bo": z(1, 4),
+        "rel_bias": z(49, 2)}
+swin = {"Conv_0": conv(3, 1, 4), "Conv_1": conv(3, 4, 4), "Conv_2": conv(3, 4, 4),
+        "SwinBlock_0": {"LayerNorm_0": ln, "LayerNorm_1": ln, "Dense_0": dense(4, 8),
+                        "Dense_1": dense(8, 4), "FusedWindowAttention_0": attn},
+        "SPUpsample_0": params["SPUpsample_0"], "Conv_3": conv(3, 4, 1)}
+scfg = dict(name="swinir", nfeatures=4, nlayers=1, nblocks=1, window_size=4,
+            num_heads=2)
+swin_sd = state_dict_from_jax({"params": swin}, scfg)
+swin_model = build_model(scfg, 1, 1, "f32", device="cpu")
+swin_model.load_state_dict(swin_sd, strict=True)
+swin_out = tuple(swin_model(torch.zeros(1, 1, 8, 8)).shape)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "yaml", "sres_tpu"))
 out = io.StringIO()
 with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     rc = chip_smoke.main()
-print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd))))
+print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
+                      swin_keys=len(swin_sd), swin_out=swin_out)))
 """
 
 
@@ -143,10 +161,13 @@ def fresh_process():
 
 
 def test_port_imports_no_jax_and_no_yaml(fresh_process):
-    """Nothing of JAX, YAML or the JAX package is loaded, even after a
-    call of state_dict_from_jax (20 tensors for a 1-group, 1-RCAB RCAN)."""
+    """Nothing of JAX, YAML or the JAX package is loaded, even after calls
+    of state_dict_from_jax (20 tensors for a 1-group, 1-RCAB RCAN; 25 for a
+    1-group, 1-block SwinIR, which then loads strictly and runs)."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
+    assert fresh_process["swin_keys"] == 25
+    assert fresh_process["swin_out"] == [1, 1, 32, 32]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):
