@@ -44,7 +44,27 @@ Phases, one line each (every line carries the card's name and power limit):
    three Adam steps on one batch (16 window_attention and 16
    window_attention_bwd launches each; the loss must fall), ms/step,
    trained tiles/s and peak memory against the composition attention, and
-   a profile.
+   a profile;
+14. the direct-conv group kernels of ``model.fused`` against their plain
+   twins at (72, 64, 48, 48) and a ragged (3, 64, 50, 38): the conv (as
+   conv1 with ReLU, as conv2 with f32 output and CA partials, with a
+   residual, and as the dgrads of conv2 and conv1: CA prologue and mask,
+   carried cotangent and group skip), the weight gradient (plain, CA
+   prologue, db from partials), gate + skip and the CA backward; timed
+   against ``F.conv2d`` and cuDNN's dgrad and wgrad;
+15. one fused group (20 RCABs + trailing conv, b72): forward, stash and
+   gradients, kernels against twins (the rule of phase 8 for flipped
+   gates; the backward kernels alone on one shared stash), timed against
+   the same weights as a Winograd group and a direct cuDNN group;
+16. RCAN-10-20-64 ×4 with ``fused: true`` served (three requests of 72
+   tiles; 410 conv and 200 gate + skip launches each), held against the
+   plain twins, timed in turns against the same weights on ``winograd: 4``
+   and on the direct trunk, and profiled;
+17. the same model trained (Adam, lr 1e-4, b72): one step's loss and
+   gradients against the plain twins, three Adam steps on one batch (the
+   loss must fall; 820 / 200 / 410 / 200 launches of conv / gate + skip /
+   wgrad / CA backward each), ms/step, tiles/s, peak memory and idle share
+   against the Winograd and direct trunks.
 
 Tolerances: f32 max|kernel − plain| ≤ 3e-5·max|plain| (group 1e-4, and
 1e-2 for a group's gradients when a ReLU gate flipped between the kernel
@@ -58,11 +78,13 @@ input read once, each output written once) over 3.35 TB/s and its tensor-
 core products over 989 TFLOP/s (bf16), for the timed call's shapes.
 ``library_ms`` times one PyTorch call computing the same function where one
 exists (cuDNN's conv and conv backward), and for window attention the
-composition above; the port never calls them.
+composition above; the port never calls them. For the direct-conv group
+kernels ``bound_ms`` is that of the timed mode (the conv as conv1).
 
 The last three lines are a JSON object describing every kernel of the path
-(``launches`` counted over the three steps of each train slice, phases 9
-and 13; ``serve_launches`` over the three requests of phases 5 and 12), the card's
+(``launches`` counted over the three steps of each train slice, phases 9,
+13 and 17; ``serve_launches`` over the three requests of phases 5, 12 and
+16), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
 """
@@ -1083,6 +1105,484 @@ def phase_swin_train(dev, seed):
     return total
 
 
+# --------------------------------------- RCAN model.fused (phases 14-17)
+# config/model/rcan-10-20-64.yaml with ``fused: true`` (fused wins over
+# winograd, as in JAX)
+FUSED_CFG = dict({k: v for k, v in MODEL_CFG.items() if k != "winograd"}, fused=True)
+ODD_SHAPE = (3, 64, 50, 38)
+
+
+def _fg_inputs(dev, rng, shape):
+    """Operands of the direct-conv group kernels: two activations, a ReLU
+    output to mask by, conv weights (9, 64, 64) f32 (torch-default scale),
+    a bias, the CA gate and ds."""
+    import torch
+    from sres_tpu_torch.ops.fused_group import conv_weights
+    c, n = shape[1], shape[0]
+    bound = 1 / math.sqrt(9 * c)
+    uni = lambda *s: torch.from_numpy(rng.uniform(-bound, bound, s).astype(np.float32)).to(dev)
+    w = uni(c, c, 3, 3)
+    return dict(x=_rand(rng, dev, shape), r=_rand(rng, dev, shape),
+                m=torch.relu(_rand(rng, dev, shape)), w=w, wk=conv_weights(w, torch.float32),
+                b=uni(c), gate=_rand(rng, dev, (n, c)).sigmoid(),
+                ds=_rand(rng, dev, (n, c), 1e-2))
+
+
+def _fg_conv_case(o, mode, fn, dt):
+    """One fgroup_conv call of ``mode`` (F1 relu; F2 partials; F3 residual;
+    B1 dgrad with the CA prologue, mask and partials; B2 dgrad with the
+    carried cotangent and the group skip), partials summed per sample."""
+    import torch
+    x, r, m = (o[k].to(dt) for k in ("x", "r", "m"))
+    wk = o["wk"].to(dt)
+    if mode == "relu":
+        return (fn(x, wk, o["b"], relu=True),)
+    if mode == "partials":
+        y, p = fn(x, wk, o["b"], out_dtype=torch.float32, partials=True)
+        return y, p.sum(1)
+    if mode == "residual":
+        return (fn(x, wk, o["b"], res=r),)
+    if mode == "dgrad_mask":
+        y, p = fn(x, wk, gate=o["gate"], ds=o["ds"], mask=m, partials=True)
+        return y, p.sum(1)
+    return (fn(x, wk, res=r, res2=m),)
+
+
+def phase_fg_kernels(dev, rng):
+    """Phase 14: the direct-conv group kernels against their twins."""
+    import torch
+    import torch.nn.functional as F
+    from sres_tpu_torch.ops import fused_group as fg
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = dict.fromkeys(("fgroup_conv", "fgroup_ca", "fgroup_wgrad", "fgroup_ca_bwd"), 0.0)
+
+    def check(kernel, name, outs):
+        for i, (a, b, c, d) in enumerate(zip(*outs)):
+            out = check_pair(f"{name}[{i}]", a, b, c, d)
+            say(f"14 kernel {kernel}", **out)
+            worst[kernel] = max(worst[kernel], out["bf16_vs_plain_abs"])
+
+    for shape in (SHAPE, ODD_SHAPE):
+        o = _fg_inputs(dev, rng, shape)
+        for mode in ("relu", "partials", "residual", "dgrad_mask", "dgrad_carry"):
+            outs = [_fg_conv_case(o, mode, fn, dt) for fn, dt in (
+                (fg.fgroup_conv, f32), (fg.fgroup_conv_plain, f32),
+                (fg.fgroup_conv, bf16), (fg.fgroup_conv_plain, bf16))]
+            torch.cuda.synchronize()
+            check("fgroup_conv", f"{mode} {shape}", outs)
+            del outs
+        for mode in ("plain", "prologue", "db_part"):
+            kw = (dict(gate=o["gate"], ds=o["ds"]) if mode == "prologue" else
+                  dict(db_part=_rand(rng, dev, (shape[0], 24, shape[1])))
+                  if mode == "db_part" else {})
+            outs = [fn(o["x"].to(dt), o["r"].to(dt), **kw) for fn, dt in (
+                (fg.fgroup_wgrad, f32), (fg.fgroup_wgrad_plain, f32),
+                (fg.fgroup_wgrad, bf16), (fg.fgroup_wgrad_plain, bf16))]
+            torch.cuda.synchronize()
+            check("fgroup_wgrad", f"{mode} {shape}", outs)
+    # the two channel-attention kernels at the serving shape
+    o = _fg_inputs(dev, rng, SHAPE)
+    c, hid = SHAPE[1], SHAPE[1] // MODEL_CFG["cbottleneck"]
+    ca = [torch.from_numpy(rng.uniform(-a, a, s).astype(np.float32)).to(dev)
+          for a, s in ((1 / 8, (hid, c)), (1 / 8, (hid,)),
+                       (1 / math.sqrt(hid), (c, hid)), (1 / math.sqrt(hid), (c,)))]
+    cf, part = fg.fgroup_conv(o["x"], o["wk"], o["b"], out_dtype=f32, partials=True)
+    outs = [fn(o["x"].to(dt), cf, part, *ca, stash_c=True) for fn, dt in (
+        (fg.fgroup_ca, f32), (fg.fgroup_ca_plain, f32), (fg.fgroup_ca, bf16),
+        (fg.fgroup_ca_plain, bf16))]
+    torch.cuda.synchronize()
+    check("fgroup_ca", "gate+skip", outs)
+    gate = outs[0][1]
+    del outs
+    outs = [fn(o["r"].to(dt), cf.to(dt), gate, *ca) for fn, dt in (
+        (fg.fgroup_ca_bwd, f32), (fg.fgroup_ca_bwd_plain, f32), (fg.fgroup_ca_bwd, bf16),
+        (fg.fgroup_ca_bwd_plain, bf16))]
+    torch.cuda.synchronize()
+    check("fgroup_ca_bwd", "ca backward", outs)
+    del outs
+
+    # timing at the serving shape, bf16
+    xb, gb, mb = o["x"].bfloat16(), o["r"].bfloat16(), o["m"].bfloat16()
+    wkb, wb, bb = o["wk"].bfloat16(), o["w"].bfloat16(), o["b"].bfloat16()
+    n, act = xb.numel(), 2 * xb.numel()              # elements; bf16 bytes of one
+    flops = 2.0 * 9 * n * c                          # one direct conv's products
+    res = {}
+    t = dict(
+        relu=time_ms(lambda: fg.fgroup_conv(xb, wkb, o["b"], relu=True)),
+        partials_f32_out=time_ms(lambda: fg.fgroup_conv(xb, wkb, o["b"], out_dtype=f32,
+                                                        partials=True)),
+        dgrad_mask=time_ms(lambda: fg.fgroup_conv(xb, wkb, gate=o["gate"], ds=o["ds"],
+                                                  mask=mb, partials=True)),
+        dgrad_carry=time_ms(lambda: fg.fgroup_conv(xb, wkb, res=gb, res2=mb)))
+    plain_ms = time_ms(lambda: fg.fgroup_conv_plain(xb, wkb, o["b"], relu=True), iters=3)
+    lib_ms = time_ms(lambda: F.conv2d(xb, wb, bb, padding=1))
+    lib_dgrad_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+        gb, xb, wb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False]))
+    # x read and y written (bf16), weights, bias; conv2 writes f32; the
+    # dgrads also read the mask, or the carried cotangent and the skip
+    wbytes = 2 * wkb.numel() + 4 * c
+    nbytes = dict(relu=2 * act, partials_f32_out=3 * act, dgrad_mask=3 * act,
+                  dgrad_carry=4 * act)
+    bounds = {k: bound_ms(v + wbytes, flops) for k, v in nbytes.items()}
+    res["fgroup_conv"] = dict(max_abs_err=worst["fgroup_conv"], ms=t["relu"],
+                              plain_ms=plain_ms, bound_ms=bounds["relu"],
+                              bound_by=bound_by(nbytes["relu"] + wbytes, flops),
+                              library_ms=lib_ms)
+    say("14 kernel fgroup_conv timing", shape=SHAPE, dtype="bf16", ms=t,
+        plain_ms=plain_ms, bound_ms=bounds, flops=flops,
+        library_ms_cudnn_conv2d_channels_last=lib_ms,
+        library_ms_cudnn_dgrad=lib_dgrad_ms)
+
+    ms = time_ms(lambda: fg.fgroup_wgrad(xb, gb))
+    ms_pro = time_ms(lambda: fg.fgroup_wgrad(xb, gb, gate=o["gate"], ds=o["ds"]))
+    plain_ms = time_ms(lambda: fg.fgroup_wgrad_plain(xb, gb), iters=3)
+    lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
+        gb, xb, wb, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, True]))
+    nbytes = 2 * act + 4 * (9 * c * c + c)            # x, g read; dW, db written f32
+    res["fgroup_wgrad"] = dict(max_abs_err=worst["fgroup_wgrad"], ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms(nbytes, flops),
+                               bound_by=bound_by(nbytes, flops), library_ms=lib_ms)
+    say("14 kernel fgroup_wgrad timing", shape=SHAPE, dtype="bf16", ms=ms,
+        prologue_ms=ms_pro, plain_ms=plain_ms, bound_ms=res["fgroup_wgrad"]["bound_ms"],
+        library_ms_cudnn_wgrad=lib_ms)
+
+    ms = time_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca))
+    ms_stash = time_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca, stash_c=True))
+    plain_ms = time_ms(lambda: fg.fgroup_ca_plain(xb, cf, part, *ca))
+    nbytes = act + 4 * n + act                        # x (bf16), c (f32) read; x' written
+    res["fgroup_ca"] = dict(max_abs_err=worst["fgroup_ca"], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms(nbytes, 0.0), bound_by="bytes",
+                            library_ms=None)
+    say("14 kernel fgroup_ca timing", shape=SHAPE, dtype="bf16", ms=ms,
+        stash_ms=ms_stash, plain_ms=plain_ms, bound_ms=res["fgroup_ca"]["bound_ms"])
+
+    cb = cf.bfloat16()
+    ms = time_ms(lambda: fg.fgroup_ca_bwd(gb, cb, gate, *ca))
+    plain_ms = time_ms(lambda: fg.fgroup_ca_bwd_plain(gb, cb, gate, *ca))
+    nbytes = 2 * act                                  # g and c read (bf16)
+    res["fgroup_ca_bwd"] = dict(max_abs_err=worst["fgroup_ca_bwd"], ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms(nbytes, 0.0),
+                                bound_by="bytes", library_ms=None)
+    say("14 kernel fgroup_ca_bwd timing", shape=SHAPE, dtype="bf16", ms=ms,
+        plain_ms=plain_ms, bound_ms=res["fgroup_ca_bwd"]["bound_ms"])
+    return res
+
+
+def phase_fg_group(dev, seed):
+    """Phase 15: one fused group (20 RCABs + trailing conv, b72), forward
+    and backward, kernels against twins; timed against the Winograd and the
+    direct cuDNN group."""
+    import torch
+    from sres_tpu_torch.models.fused import FusedResidualGroup
+    from sres_tpu_torch.models.layers import ResidualGroup, init_torch_default
+    from sres_tpu_torch.models.wino_blocks import WinoResidualGroup
+    from sres_tpu_torch.ops import fused_group as fg
+    f32, bf16 = torch.float32, torch.bfloat16
+    nb = MODEL_CFG["nblocks"]
+    grp = init_torch_default(FusedResidualGroup(64, MODEL_CFG["cbottleneck"], nb),
+                             seed).to(dev)
+    rng = np.random.default_rng(seed + 5)
+    x, gy = _rand(rng, dev, SHAPE), _rand(rng, dev, SHAPE)
+
+    with torch.inference_mode():
+        outs = {}
+        for plain in (False, True):
+            grp.plain = plain
+            for dt in (f32, bf16):
+                outs[(plain, dt)] = grp(x.to(dt))
+        grp.plain = False
+        torch.cuda.synchronize()
+        out = check_pair("fused group forward", *(outs[k] for k in (
+            (False, f32), (True, f32), (False, bf16), (True, bf16))), GROUP_F32_TOL)
+        say("15 fused group forward", **out)
+        del outs
+
+    # the stash, kernels against twins, and the ReLU gates (a > 0) that
+    # open on one side and not the other in f32
+    with torch.no_grad():
+        sts = {}
+        for plain in (False, True):
+            for dt in (f32, bf16):
+                st = fg.new_stash()
+                (fg.fused_group_fwd_plain if plain else fg.fused_group_fwd)(
+                    x.to(dt), grp._operands(dt), st)
+                sts[(plain, dt)] = st
+        flips = sum(int(((a > 0) != (b > 0)).sum())
+                    for a, b in zip(sts[(False, f32)].a, sts[(True, f32)].a))
+        torch.cuda.synchronize()
+        for slot in ("x", "a", "c", "gate"):
+            out = check_pair(f"fused group stash {slot}", *(
+                _cat(getattr(sts[k], slot)) for k in ((False, f32), (True, f32),
+                                                      (False, bf16), (True, bf16))),
+                GROUP_F32_TOL)
+            say("15 fused group stash", relu_gates=nb * x.numel(), flipped_gates=flips,
+                **out)
+        del sts
+    names = [n for n, _ in grp.named_parameters()]
+    kinds = {"conv_w": lambda n: n.endswith("weight") and "conv_du" not in n,
+             "conv_b": lambda n: n.endswith("bias") and "conv_du" not in n,
+             "ca": lambda n: "conv_du" in n}
+
+    def grads(plain, dt):
+        grp.plain = plain
+        xx = x.to(dt).detach().requires_grad_()
+        gs = torch.autograd.grad((grp(xx).float() * gy).sum(), [xx, *grp.parameters()])
+        res = {"dx": gs[0].float()}
+        for kind, sel in kinds.items():
+            res[kind] = _cat(g for n, g in zip(names, gs[1:]) if sel(n))
+        return res
+
+    # end to end under autograd: the f32 group bound, widened as in phase 8
+    # when a gate flipped; the bf16 envelope
+    tol = GROUP_F32_TOL if flips == 0 else FLIPPED_GRAD_F32_TOL
+    res = {(p, dt): grads(p, dt) for p in (False, True) for dt in (f32, bf16)}
+    grp.plain = False
+    torch.cuda.synchronize()
+    for kind in ("dx", *kinds):
+        out = check_pair(f"fused group grad {kind}", *(res[k][kind] for k in (
+            (False, f32), (True, f32), (False, bf16), (True, bf16))), tol)
+        say("15 fused group backward", flipped_gates=flips, **out)
+    del res
+    # the backward kernels alone, in f32, on one shared forward (the
+    # kernels' stash), within 1e-4·max
+    with torch.no_grad():
+        ops = grp._operands(f32)
+        st = fg.new_stash()
+        fg.fused_group_fwd(x, ops, st)
+        rk = fg.fused_group_bwd(gy, st, ops)
+        rp = fg.fused_group_bwd_plain(gy, st, ops)
+        torch.cuda.synchronize()
+        del st
+    pairs = [("dx", rk[0], rp[0]), ("dwg", rk[2], rp[2]), ("dbg", rk[3], rp[3])]
+    for i, name in enumerate(("dw1", "db1", "dw2", "db2", "dcw1", "dcb1", "dcw2", "dcb2")):
+        pairs.append((name, torch.stack([g[i] for g in rk[1]]),
+                      torch.stack([g[i] for g in rp[1]])))
+    for name, a, b in pairs:
+        err, bound = float((a - b).abs().max()), GROUP_F32_TOL * float(b.abs().max())
+        say("15 fused group backward kernels, same forward", grad=name, f32_err=err,
+            f32_bound=bound)
+        if not err <= bound:
+            raise CheckFailed(f"fused group backward {name}: {err} > {bound}")
+    del rk, rp, pairs
+
+    # timing, bf16: the same weights as a Winograd group and a direct group
+    wino = WinoResidualGroup(64, MODEL_CFG["cbottleneck"], nb, 4).to(dev)
+    direct = ResidualGroup(64, 3, MODEL_CFG["cbottleneck"], nb).to(dev)
+    for other in (wino, direct):
+        other.load_state_dict(grp.state_dict())
+    groups = {"fused": grp, "winograd": wino, "direct": direct}
+    xb = x.bfloat16()
+
+    def fwd(name, i):
+        with torch.inference_mode():
+            groups[name](xb)
+
+    def fwd_bwd(name, i):
+        xx = xb.detach().requires_grad_()
+        g = groups[name]
+        torch.autograd.grad((g(xx).float() * gy).sum(), [xx, *g.parameters()])
+
+    tf = _windows(fwd, tuple(groups), 2)
+    tb = _windows(fwd_bwd, tuple(groups), 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd_bwd("fused", 0)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    say("15 fused group timing", dtype="bf16",
+        forward_ms={k: v[0] for k, v in tf.items()},
+        fwd_bwd_ms={k: v[0] for k, v in tb.items()},
+        forward_windows={k: v[1] for k, v in tf.items()},
+        fwd_bwd_windows={k: v[1] for k, v in tb.items()}, peak_mem_gb_fused_fwd_bwd=peak)
+
+
+def _all_launches():
+    """The launch counts of every kernel wrapper of the port."""
+    from sres_tpu_torch.ops import fused_group as fg
+    from sres_tpu_torch.ops import window_attention as twa
+    from sres_tpu_torch.ops import winograd_conv as wc
+    return {**wc.LAUNCHES, **twa.LAUNCHES, **fg.LAUNCHES}
+
+
+def _reset_all_launches():
+    from sres_tpu_torch.ops import fused_group as fg
+    from sres_tpu_torch.ops import window_attention as twa
+    from sres_tpu_torch.ops import winograd_conv as wc
+    for mod in (wc, twa, fg):
+        mod.reset_launches()
+
+
+def phase_fg_serve(dev, seed):
+    """Phase 16: RCAN-10-20-64 ×4 with ``fused: true`` served."""
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    from sres_tpu_torch.trainer.step import build_eval_step, make_step_config
+    model = build_model(FUSED_CFG, 1, 1, precision="bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, FUSED_CFG)
+    eval_step = build_eval_step(model, sc)
+    rng = np.random.default_rng(seed + 6)
+    reqs = [torch.from_numpy(smooth_fields(rng, BATCH, HR)).to(dev) for _ in range(NREQ)]
+    weight = torch.ones(BATCH, device=dev)
+    eval_step(reqs[0], weight)                 # builds the operand caches
+    torch.cuda.synchronize()
+
+    _reset_all_launches()
+    results = [eval_step(hr, weight) for hr in reqs]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_launches().items() if v}
+    for i, (met, (lr, out, tar, interp)) in enumerate(results):
+        s, si = float(met["sloss"]), float(met["interp_sloss"])
+        say("16 fused serve request", request=i, sloss=s, interp_sloss=si,
+            ratio_pct=100.0 * s / si, out_shape=list(out.shape))
+        if not (math.isfinite(s) and math.isfinite(si) and si > 0
+                and tuple(out.shape) == (BATCH, 1, HR, HR)
+                and bool(torch.isfinite(out).all())):
+            raise CheckFailed(f"fused request {i}: non-finite or misshapen output")
+    nl, nb = FUSED_CFG["nlayers"], FUSED_CFG["nblocks"]
+    want = {"fgroup_conv": NREQ * nl * (2 * nb + 1), "fgroup_ca": NREQ * nl * nb}
+    say("16 fused serve launches", launches=launches, expected=want)
+    if launches != want:
+        raise CheckFailed(f"fused serving launches {launches} != expected {want}")
+
+    out_k = results[0][1][1]
+    set_plain_twins(model, True)
+    out_p = eval_step(reqs[0], weight)[1][1]
+    set_plain_twins(model, False)
+    ref = build_model(FUSED_CFG, 1, 1, precision="f32", device=dev)
+    ref.load_state_dict(model.state_dict())
+    set_plain_twins(ref, True)
+    out_t = build_eval_step(ref, sc)(reqs[0], weight)[1][1]
+    del ref
+    e_k, e_p = rel_err(out_k, out_t), rel_err(out_p, out_t)
+    say("16 fused serve vs plain", bf16_kernel_rel=e_k, bf16_plain_rel=e_p,
+        bound=2 * e_p + 1e-4, kernel_vs_plain_abs=float((out_k - out_p).abs().max()))
+    if not e_k <= 2 * e_p + 1e-4:
+        raise CheckFailed(f"fused serving outside the bf16 envelope: {e_k} > 2*{e_p}+1e-4")
+
+    # the same weights on the Winograd and the direct trunk, in turns
+    steps = {"fused": eval_step}
+    for name, cfg in (("winograd", MODEL_CFG), ("direct", dict(MODEL_CFG, winograd=None))):
+        other = build_model(cfg, 1, 1, "bf16", device=dev)
+        other.load_state_dict(model.state_dict())
+        steps[name] = build_eval_step(other, sc)
+    timing = _windows(lambda name, i: steps[name](reqs[i % NREQ], weight), tuple(steps),
+                      NREQ)
+    for name, (med, ws) in timing.items():
+        say(f"16 fused serve timing {name}", windows_ms_per_request=ws, ms_per_request=med,
+            tiles_per_s=BATCH / (med / 1e3))
+    torch.cuda.reset_peak_memory_stats(dev)
+    eval_step(reqs[0], weight)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    busy = {name: profile_device(f"16 fused serve profile {name}",
+                                 lambda: steps[name](reqs[0], weight), top=14)
+            for name in steps}
+    say("16 fused serve summary", **{f"{k}_ms_per_request": v[0] for k, v in timing.items()},
+        **{f"{k}_tiles_per_s": BATCH / (v[0] / 1e3) for k, v in timing.items()},
+        **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy},
+        peak_mem_gb_fused_request=peak)
+    return launches
+
+
+def phase_fg_train(dev, seed):
+    """Phase 17: RCAN-10-20-64 ×4 with ``fused: true`` trained."""
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
+                                             make_step_config)
+    nl, nb = FUSED_CFG["nlayers"], FUSED_CFG["nblocks"]
+    model = build_model(FUSED_CFG, 1, 1, "bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, FUSED_CFG)
+    rng = np.random.default_rng(seed + 7)
+    batches = [torch.from_numpy(smooth_fields(rng, BATCH, HR)).to(dev) for _ in range(NSTEP)]
+    weight = torch.ones(BATCH, device=dev)
+
+    # one step's loss and gradients: kernels (bf16) and plain twins (bf16)
+    # against the plain twins in f32, per residual group and the rest
+    ref = build_model(FUSED_CFG, 1, 1, "f32", device=dev)
+    ref.load_state_dict(model.state_dict())
+    set_plain_twins(ref, True)
+    lt, gt = _loss_and_grads(ref, sc, batches[0], weight)
+    del ref
+    lk, gk = _loss_and_grads(model, sc, batches[0], weight)
+    set_plain_twins(model, True)
+    lp, gp = _loss_and_grads(model, sc, batches[0], weight)
+    set_plain_twins(model, False)
+    torch.cuda.synchronize()
+    parts = {f"group{g}": (lambda n, g=g: n.startswith(f"body.{g}.")) for g in range(nl)}
+    parts["head, body conv, tail"] = (
+        lambda n: not n.startswith("body.") or n.startswith(f"body.{nl}."))
+    for part, sel in parts.items():
+        k, p, t = (_cat(v for n, v in gd.items() if sel(n)) for gd in (gk, gp, gt))
+        for v in (k, p, t, lk, lp, lt):
+            if not torch.isfinite(v).all():
+                raise CheckFailed(f"fused train {part}: non-finite gradient or loss")
+        e_k, e_p = rel_err(k, t), rel_err(p, t)
+        say("17 fused train step vs plain", part=part, bf16_kernel_rel=e_k,
+            bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
+        if not e_k <= 2 * e_p + 1e-4:
+            raise CheckFailed(f"fused train {part}: outside the bf16 envelope "
+                              f"{e_k} > 2*{e_p}+1e-4")
+    e_k, e_p = rel_err(lk, lt), rel_err(lp, lt)
+    say("17 fused train step vs plain", part="loss", bf16_kernel_rel=e_k,
+        bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
+    if not e_k <= 2 * e_p + 1e-4:
+        raise CheckFailed(f"fused train loss outside the bf16 envelope {e_k} > 2*{e_p}+1e-4")
+    del gk, gp, gt
+
+    # three Adam steps on one batch (its loss must fall), launches per step:
+    # forward 2 convs + CA per RCAB, a trailing conv per group; backward per
+    # group the trailing conv's wgrad and dgrad, per RCAB the CA backward,
+    # 2 wgrads and 2 dgrads
+    step = build_train_step(model, build_optimizer(model, TRAIN_TASK), sc)
+    want = {"fgroup_conv": 2 * nl * (2 * nb + 1), "fgroup_ca": nl * nb,
+            "fgroup_wgrad": nl * (2 * nb + 1), "fgroup_ca_bwd": nl * nb}
+    torch.cuda.reset_peak_memory_stats(dev)
+    total, losses = dict.fromkeys(want, 0), []
+    for i in range(NSTEP):
+        _reset_all_launches()
+        met = step(batches[0], weight)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _all_launches().items() if v}
+        vals = {k: float(v) for k, v in met.items()}
+        say("17 fused train step", step=i, **vals, launches=launches, expected=want)
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise CheckFailed(f"fused train step {i}: non-finite metrics {vals}")
+        if launches != want:
+            raise CheckFailed(f"fused train step {i}: launches {launches} != {want}")
+        losses.append(vals["mloss"])
+        for k in total:
+            total[k] += launches[k]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not losses[-1] < losses[0]:
+        raise CheckFailed(f"fused loss did not fall over {NSTEP} Adam steps: {losses}")
+
+    steps = {"fused": step}
+    peaks = {"fused": peak_gb}
+    for name, cfg in (("winograd", MODEL_CFG), ("direct", dict(MODEL_CFG, winograd=None))):
+        other = build_model(cfg, 1, 1, "bf16", device=dev)
+        other.load_state_dict(model.state_dict())
+        steps[name] = build_train_step(other, build_optimizer(other, TRAIN_TASK), sc)
+    timing = _windows(lambda name, i: steps[name](batches[i % NSTEP], weight),
+                      tuple(steps), 2)
+    for name in ("winograd", "direct"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps[name](batches[0], weight)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated(dev) / 1e9
+    for name, (med, ws) in timing.items():
+        say(f"17 fused train timing {name}", windows_ms_per_step=ws, median_ms_per_step=med,
+            tiles_per_s=BATCH / (med / 1e3), peak_mem_gb=peaks[name])
+    busy = {name: profile_device(f"17 fused train profile {name}",
+                                 lambda: steps[name](batches[0], weight), top=16)
+            for name in steps}
+    say("17 fused train summary", **{f"{k}_ms_per_step": v[0] for k, v in timing.items()},
+        **{f"{k}_tiles_per_s": BATCH / (v[0] / 1e3) for k, v in timing.items()},
+        **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy},
+        **{f"peak_mem_gb_{k}": v for k, v in peaks.items()}, losses=losses)
+    return total
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1121,20 +1621,29 @@ def main() -> int:
     kern["window_attention_bwd"] = phase_wattn_bwd(dev, rng)
     serve_launches.update(phase_swin_serve(dev, args.seed))
     launches.update(phase_swin_train(dev, args.seed))
+    kern.update(phase_fg_kernels(dev, rng))
+    phase_fg_group(dev, args.seed)
+    serve_launches.update(phase_fg_serve(dev, args.seed))
+    launches.update(phase_fg_train(dev, args.seed))
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
     bwd_src = "sres_tpu_torch/ops/cuda/winograd_bwd.cu"
     wa_src = "sres_tpu_torch/ops/cuda/window_attention.cu"
+    fg_src = "sres_tpu_torch/ops/cuda/fused_group.cu"
     where = {"wino_conv": (src, "sres_tpu/ops/pallas/winograd_conv.py:81"),
              "ca_skip": (src, "sres_tpu/ops/pallas/winograd_conv.py:454"),
              "wino_conv_bwd": (bwd_src, "sres_tpu/ops/pallas/winograd_conv.py:212"),
              "ca_skip_bwd": (bwd_src, "sres_tpu/ops/pallas/wino_group_grad.py:324"),
              "window_attention": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
-             "window_attention_bwd": (wa_src, "sres_tpu/ops/pallas/window_attention.py:84")}
+             "window_attention_bwd": (wa_src, "sres_tpu/ops/pallas/window_attention.py:84"),
+             "fgroup_conv": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
+             "fgroup_ca": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
+             "fgroup_wgrad": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
+             "fgroup_ca_bwd": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194")}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
-             launches=launches[k], serve_launches=serve_launches[k], **kern[k])
+             launches=launches[k], serve_launches=serve_launches.get(k, 0), **kern[k])
         for k in where]}))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,13 @@ through the Winograd kernels (models/wino_blocks.py) in channels_last
 memory; the parameter set is the same as the direct path's. Unlike the JAX
 model, an unsupported geometry (H or W not a multiple of m) raises instead
 of falling back to the direct path.
+
+``fused`` runs every residual group through the direct-conv group kernels
+(models/fused.py) in channels_last memory; the body conv and the global
+skip stay as in the direct path (sres_tpu/models/rcan.py:158-161), and
+``fused`` wins over ``winograd`` (:85). The JAX model always lane-packs the
+fused trunk and pads an odd batch to the pack (:76-80); here each tile runs
+at C = 64, so there is nothing to pad.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Mapping, Optional
 import torch
 import torch.nn as nn
 
+from sres_tpu_torch.models.fused import FusedResidualGroup
 from sres_tpu_torch.models.layers import Conv, ResidualGroup, SPUpsample
 from sres_tpu_torch.models.registry import resolve_parms
 from sres_tpu_torch.models.wino_blocks import WinoConv, WinoResidualGroup
@@ -31,16 +39,21 @@ class RCAN(nn.Module):
     def __init__(self, nchannels_in: int, nchannels_out: int, nfeatures: int,
                  nlayers: int, nblocks: int, cbottleneck: int, kernel_size: int,
                  scale: int, use_bias: bool = True,
-                 winograd: Optional[int] = None,
+                 winograd: Optional[int] = None, fused: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if winograd and kernel_size != 3:
-            raise ValueError("model.winograd needs kernel_size 3")
-        self.winograd = winograd
+        if (winograd or fused) and kernel_size != 3:
+            raise ValueError("model.winograd and model.fused need kernel_size 3")
+        self.fused = fused
+        self.winograd = None if fused else winograd
         self.dtype = dtype
         nf, k = nfeatures, kernel_size
         self.head = nn.Sequential(Conv(nchannels_in, nf, k, use_bias))
-        if winograd:
+        if fused:
+            groups = [FusedResidualGroup(nf, cbottleneck, nblocks, use_bias)
+                      for _ in range(nlayers)]
+            body_conv = Conv(nf, nf, k, use_bias)
+        elif winograd:
             groups = [WinoResidualGroup(nf, cbottleneck, nblocks, winograd,
                                         use_bias) for _ in range(nlayers)]
             body_conv = WinoConv(nf, nf, winograd, use_bias)
@@ -63,6 +76,8 @@ class RCAN(nn.Module):
                 res = group(res)
             res = self.body[-1](res, residual=skip)
         else:
+            if self.fused:
+                skip = skip.contiguous(memory_format=torch.channels_last)
             res = self.body(skip) + skip
         return self.tail(res).float()
 
@@ -77,10 +92,6 @@ def build(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
                       nchannels_in=nchannels_in, nchannels_out=nchannels_out)
     # lane_pack, winograd_bs, scan_groups and remat_trunk are TPU layout and
     # compile-time levers: accepted, no effect here (ROADMAP "leaves out")
-    if p["fused"]:
-        raise NotImplementedError(
-            "model.fused (the attic residual-group kernel) is not ported: "
-            "ROADMAP Queue 2 items 9 and 10")
     if p["quantization"]:
         raise NotImplementedError(
             f"model.quantization={p['quantization']!r} is not ported: "
@@ -93,4 +104,5 @@ def build(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
         nfeatures=p["nfeatures"], nlayers=p["nlayers"], nblocks=p["nblocks"],
         cbottleneck=p["cbottleneck"], kernel_size=p["kernel_size"],
         scale=p["scale"], use_bias=p["bias"],
-        winograd=(int(p["winograd"]) if p["winograd"] else None), dtype=dtype)
+        winograd=(int(p["winograd"]) if p["winograd"] else None),
+        fused=bool(p["fused"]), dtype=dtype)

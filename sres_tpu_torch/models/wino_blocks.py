@@ -66,6 +66,19 @@ def _bias(conv: Conv) -> torch.Tensor:
     return torch.zeros(conv.out_channels, device=conv.weight.device)
 
 
+def group_params(group: ResidualGroup) -> List[Optional[torch.Tensor]]:
+    """A residual group's parameters in the order the group autograd
+    Functions take them: per RCAB conv1 w, b, conv2 w, b, CA conv 1 w, b, CA
+    conv 2 w, b; then the trailing conv's w, b (None for an absent bias)."""
+    blocks, trail = list(group.body)[:-1], group.body[-1]
+    out: List[Optional[torch.Tensor]] = []
+    for blk in blocks:
+        ca = blk.body[3].conv_du
+        for conv in (blk.body[0], blk.body[2], ca[0], ca[2]):
+            out += [conv.weight, conv.bias]
+    return out + [trail.weight, trail.bias]
+
+
 class WinoConv(Conv):
     """3×3 conv through the Winograd kernel; parameters of ``layers.Conv``."""
 
@@ -130,21 +143,11 @@ class WinoResidualGroup(ResidualGroup):
         return (st(ws).to(dtype), st(bv), st(cw1), st(cb1), st(cw2), st(cb2),
                 transform_weights(trail.weight, self.m).to(dtype), _bias(trail))
 
-    def _params(self) -> List[Optional[torch.Tensor]]:
-        """Parameters in WinoGroupTrailFn order (None for an absent bias)."""
-        blocks, trail = list(self.body)[:-1], self.body[-1]
-        out: List[Optional[torch.Tensor]] = []
-        for blk in blocks:
-            ca = blk.body[3].conv_du
-            for conv in (blk.body[0], blk.body[2], ca[0], ca[2]):
-                out += [conv.weight, conv.bias]
-        return out + [trail.weight, trail.bias]
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ops = self._operands(x.dtype)
         if _records_grad(self, x):
             return WinoGroupTrailFn.apply(x, ops, self.m, self.plain,
-                                          *self._params())
+                                          *group_params(self))
         fn = wino_group_fwd_plain if self.plain else wino_group_fwd
         ws, bv, cw1, cb1, cw2, cb2, wt, bt = ops
         return fn(x, ws, bv, cw1, cb1, cw2, cb2, self.m, wt, bt)

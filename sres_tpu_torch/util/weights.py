@@ -4,8 +4,10 @@ load with ``strict=True``.
 
 The port keeps its own copy of the RCAN part of the JAX package's exporter
 (sres_tpu/util/torch_export.py:27-127 and the ``rcan`` branch of
-``export_variables`` :380-391), so that it imports nothing of the JAX
-package; SwinIR's (``export_swinir``), which the JAX package lacks, maps
+``export_variables`` :380-391), and a numpy copy of
+``sres_tpu.models.fused.rcan_params_from_fused`` (:129-147), so that a JAX
+``model.fused`` tree (``FusedResidualGroup_{g}`` stacks) exports to the same
+names as an unfused one; it imports nothing of the JAX package; SwinIR's (``export_swinir``), which the JAX package lacks, maps
 both of its attention trees onto the public SwinIR's names. Layout: flax
 conv kernels (kh, kw, Cin, Cout) → torch (Cout, Cin, kh, kw), Dense kernels
 (in, out) → Linear weights (out, in). The other architectures are not
@@ -48,10 +50,35 @@ def _export_upsampler(tw: TorchState, ups: Dict[str, Any], scale: int,
         _conv_out(tw, f"{base}.{2 * i}", ups[f"Conv_{i}"])
 
 
+def rcan_params_from_fused(params: Dict[str, Any], nlayers: int,
+                           nblocks: int) -> Dict[str, Any]:
+    """A JAX fused RCAN tree (``FusedResidualGroup_{g}``: w1, b1, w2, b2, wd,
+    bd, wu, bu stacked over the RCABs; wg, bg) → the unfused tree
+    (``ResidualGroup_{g}``), everything else shared."""
+    out = {k: v for k, v in params.items()
+           if not k.startswith("FusedResidualGroup_")}
+    conv = lambda k, b: {"Conv_0": {"kernel": np.asarray(k), "bias": np.asarray(b)}}
+    for g in range(nlayers):
+        f = {k: np.asarray(v) for k, v in params[f"FusedResidualGroup_{g}"].items()}
+        group: Dict[str, Any] = {}
+        for b in range(nblocks):
+            group[f"RCAB_{b}"] = {
+                "Conv_0": conv(f["w1"][b], f["b1"][b, 0]),
+                "Conv_1": conv(f["w2"][b], f["b2"][b, 0]),
+                "CALayer_0": {"Conv_0": conv(f["wd"][b], f["bd"][b, 0]),
+                              "Conv_1": conv(f["wu"][b], f["bu"][b, 0])},
+            }
+        group["Conv_0"] = conv(f["wg"], f["bg"][0])
+        out[f"ResidualGroup_{g}"] = group
+    return out
+
+
 def export_rcan(params: Dict[str, Any], nlayers: int, nblocks: int,
                 scale: int = 4) -> TorchState:
-    """flax RCAN params (unfused, unpacked tree) → reference rcan/network.py
-    state dict."""
+    """flax RCAN params (unfused, unpacked tree, or a ``model.fused`` tree)
+    → reference rcan/network.py state dict."""
+    if any(k.startswith("FusedResidualGroup_") for k in params):
+        params = rcan_params_from_fused(params, nlayers, nblocks)
     tw: TorchState = {}
     _conv_out(tw, "head.0", params["Conv_0"])
     for g in range(nlayers):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (forward and backward: the Winograd conv and
-channel attention, the window attention) against their plain twins, on
-the card.
+channel attention, the window attention, the direct-conv group kernels of
+``model.fused``) against their plain twins, on the card.
 
 Imports no JAX, so it runs on a machine that has only torch and a card;
 tests/conftest.py imports JAX, so skip it there:
@@ -24,6 +24,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False       # the direct-conv twins' F.conv2d
     return torch.device("cuda")
 
 
@@ -231,3 +232,127 @@ def test_window_attention_wrappers_reject_what_the_kernels_do_not_take(dev):
         twa.window_attention(x, ws[0].T, *ws[1:], None, 4)
     with pytest.raises(ValueError):            # 5 windows per mask group of 4
         twa.window_attention(x[:5], *ws, torch.zeros(4, 64, 64, device=dev), 4)
+
+
+def _fg_operands(dev, shape, seed):
+    """Direct-conv group operands: x, a second activation, a ReLU output to
+    mask by, conv weights (9, 64, 64) f32, a bias, gate and ds."""
+    from sres_tpu_torch.ops import fused_group as fg
+    rng = np.random.default_rng(seed)
+    n = shape[0]
+    x, r = _t(rng, shape, dev), _t(rng, shape, dev)
+    m = torch.relu(_t(rng, shape, dev))
+    wk = fg.conv_weights(_t(rng, (64, 64, 3, 3), dev, 0.04), torch.float32)
+    return (x, r, m, wk, _t(rng, (64,), dev, 0.04), _t(rng, (n, 64), dev).sigmoid(),
+            _t(rng, (n, 64), dev, 1e-2))
+
+
+def _dt(args, dt):
+    return [a.to(dt) if a is not None and a.dim() == 4 else a for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 16, 32), (2, 64, 13, 21)])
+@pytest.mark.parametrize("mode", ["relu", "partials", "residual", "dgrad"])
+def test_fgroup_conv_matches_twin(dev, shape, mode):
+    """Kernel (a) in each epilogue: bias + ReLU; f32 output with the per-tile
+    sums (compared summed per sample); two residuals; the CA prologue with
+    the mask and partials (the dgrad of conv2). A full and a ragged tile
+    grid."""
+    from sres_tpu_torch.ops import fused_group as fg
+    x, r, m, wk, b, gate, ds = _fg_operands(dev, shape, 50)
+
+    def run(fn, dt):
+        xx, rr, mm = _dt((x, r, m), dt)
+        w = wk.to(dt)
+        if mode == "relu":
+            return (fn(xx, w, b, relu=True),)
+        if mode == "partials":
+            y, p = fn(xx, w, b, out_dtype=torch.float32, partials=True)
+            return y, p.sum(1)
+        if mode == "residual":
+            return (fn(xx, w, b, res=rr, res2=mm),)
+        y, p = fn(xx, w, gate=gate, ds=ds, mask=mm, partials=True)
+        return y, p.sum(1)
+
+    launches = fg.LAUNCHES["fgroup_conv"]
+    _check_many(f"fgroup_conv {mode} {shape}", run(fg.fgroup_conv, torch.float32),
+                run(fg.fgroup_conv_plain, torch.float32),
+                run(fg.fgroup_conv, torch.bfloat16),
+                run(fg.fgroup_conv_plain, torch.bfloat16))
+    assert fg.LAUNCHES["fgroup_conv"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 64, 16, 32), (2, 64, 13, 21)])
+@pytest.mark.parametrize("mode", ["plain", "prologue", "db_part"])
+def test_fgroup_wgrad_matches_twin(dev, shape, mode):
+    """Kernel (c): dW and db, with the CA prologue, and db from a conv's
+    partials."""
+    from sres_tpu_torch.ops import fused_group as fg
+    x, g, _, _, _, gate, ds = _fg_operands(dev, shape, 51)
+    part = _t(np.random.default_rng(52), (shape[0], 5, 64), dev)
+
+    def run(fn, dt):
+        xx, gg = _dt((x, g), dt)
+        if mode == "prologue":
+            return fn(xx, gg, gate=gate, ds=ds)
+        return fn(xx, gg, db_part=part if mode == "db_part" else None)
+
+    launches = fg.LAUNCHES["fgroup_wgrad"]
+    _check_many(f"fgroup_wgrad {mode} {shape}", run(fg.fgroup_wgrad, torch.float32),
+                run(fg.fgroup_wgrad_plain, torch.float32),
+                run(fg.fgroup_wgrad, torch.bfloat16),
+                run(fg.fgroup_wgrad_plain, torch.bfloat16))
+    assert fg.LAUNCHES["fgroup_wgrad"] == launches + 2
+
+
+@pytest.mark.cuda
+def test_fgroup_ca_and_ca_bwd_match_twin(dev):
+    """Kernels (b) and (d): gate + skip from conv partials (and the c
+    stash), and the channel-attention backward."""
+    from sres_tpu_torch.ops import fused_group as fg
+    shape = (3, 64, 16, 32)
+    x, c, g, wk, b, gate, _ = _fg_operands(dev, shape, 53)
+    c = c + 0.3
+    ca = [_t(np.random.default_rng(54), s, dev, 0.1)
+          for s in ((32, 64), (32,), (64, 32), (64,))]
+    part = c.sum((2, 3))[:, None] / 2
+    part = torch.cat([part, part], 1)
+
+    def fwd(fn, dt):
+        xn, gt, cst = fn(x.to(dt), c, part, *ca, stash_c=True)
+        return xn, gt, cst
+
+    _check_many("fgroup_ca", fwd(fg.fgroup_ca, torch.float32),
+                fwd(fg.fgroup_ca_plain, torch.float32),
+                fwd(fg.fgroup_ca, torch.bfloat16), fwd(fg.fgroup_ca_plain, torch.bfloat16))
+    bwd = lambda fn, dt: fn(g.to(dt), c.to(dt), gate, *ca)
+    _check_many("fgroup_ca_bwd", bwd(fg.fgroup_ca_bwd, torch.float32),
+                bwd(fg.fgroup_ca_bwd_plain, torch.float32),
+                bwd(fg.fgroup_ca_bwd, torch.bfloat16),
+                bwd(fg.fgroup_ca_bwd_plain, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_fused_group_gradients_match_twin(dev):
+    """FusedGroupFn (2 RCABs + trailing conv, f32) under autograd on the
+    card: the output, dx and every parameter's gradient through the kernels
+    against the plain twins (1e-4·max)."""
+    from sres_tpu_torch.models.fused import FusedResidualGroup
+    from sres_tpu_torch.models.layers import init_torch_default
+    grp = init_torch_default(FusedResidualGroup(64, 2, 2), 6).to(dev)
+    rng = np.random.default_rng(55)
+    x = _t(rng, (3, 64, 16, 24), dev).contiguous(memory_format=torch.channels_last)
+    gy = _t(rng, (3, 64, 16, 24), dev)
+    res = {}
+    for plain in (False, True):
+        grp.plain = plain
+        xx = x.clone().requires_grad_()
+        y = grp(xx)
+        res[plain] = (y.detach(), *torch.autograd.grad((y * gy).sum(),
+                                                        [xx, *grp.parameters()]))
+    grp.plain = False
+    torch.cuda.synchronize()
+    for a, b in zip(res[False], res[True]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

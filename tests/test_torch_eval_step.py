@@ -110,6 +110,7 @@ sys.path.insert(0, %r)
 sys.argv = ["chip_smoke.py"]
 import chip_smoke, sres_tpu_torch.device, sres_tpu_torch.models
 import sres_tpu_torch.models.rcan, sres_tpu_torch.models.swinir
+import sres_tpu_torch.models.fused, sres_tpu_torch.ops.fused_group
 import sres_tpu_torch.ops.cuda, sres_tpu_torch.ops.window_attention
 import sres_tpu_torch.ops.resize, sres_tpu_torch.ops.winograd_conv
 import sres_tpu_torch.trainer.step, sres_tpu_torch.util.weights

@@ -105,11 +105,16 @@ def test_seeded_init_is_reproducible_and_torch_default():
 
 
 def test_unported_knobs_raise_and_tpu_knobs_are_ignored():
-    for extra in (dict(fused=True), dict(quantization="int8_fused"),
+    for extra in (dict(quantization="int8_fused"),
                   dict(pervar_heads=True), dict(name="edsr")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dict(CFG, **extra), 1, 1, "f32", device="cpu")
     ref = build_model(CFG, 1, 1, "f32", device="cpu").state_dict()
+    # model.fused builds (winning over winograd, as in JAX) with the direct
+    # model's parameter names
+    fused = build_model(dict(CFG, fused=True, winograd=4), 1, 1, "f32", device="cpu")
+    assert fused.fused and not fused.winograd
+    assert list(fused.state_dict()) == list(ref)
     knobs = build_model(dict(CFG, lane_pack=2, winograd_bs=4, scan_groups=True,
                              remat_trunk=True), 1, 1, "f32",
                         device="cpu").state_dict()
