@@ -64,7 +64,27 @@ Phases, one line each (every line carries the card's name and power limit):
    gradients against the plain twins, three Adam steps on one batch (the
    loss must fall; 820 / 200 / 410 / 200 launches of conv / gate + skip /
    wgrad / CA backward each), ms/step, tiles/s, peak memory and idle share
-   against the Winograd and direct trunks.
+   against the Winograd and direct trunks;
+18. the conv kernel's scaled residual epilogue (res + res_scale·conv,
+   res_scale 0.1 and 0.8, m ∈ {2, 4}, (72, 64, 48, 48)) against its twin,
+   and at res_scale 1 the unscaled epilogue's bits; the conv chain
+   (``wino_chain_fwd``, K = 20 convs + ReLU in one cooperative launch, m=4,
+   bf16 and f32) against its twin, bit for bit against K ``wino_conv``
+   launches, and timed against them, the twin and K channels_last
+   ``F.conv2d`` + ReLU, with its bound and a device-time profile;
+19. one EDSR trunk (16 ResBlocks + body conv + skip, the ungated group,
+   m=4, b72): forward, stash and gradients, kernels against twins (the rule
+   of phase 8 for flipped gates; the backward kernels alone on one shared
+   stash), timed against the direct cuDNN trunk of the same weights;
+20. EDSR ×4 (config/model/edsr.yaml + ``winograd: 4``) served: three
+   requests of 72 tiles, 33 ``wino_conv`` launches each, held against the
+   plain twins, timed in turns against the same weights with ``winograd``
+   unset, and profiled;
+21. the same EDSR trained (Adam, lr 1e-4, b72): one step's loss and
+   gradients against the plain twins, three Adam steps on one batch (the
+   loss must fall; 49 ``wino_conv`` and 33 ``wino_conv_bwd`` launches
+   each), ms/step, tiles/s, peak memory and idle share against the direct
+   trunk, and a profile.
 
 Tolerances: f32 max|kernel − plain| ≤ 3e-5·max|plain| (group 1e-4, and
 1e-2 for a group's gradients when a ReLU gate flipped between the kernel
@@ -83,8 +103,9 @@ kernels ``bound_ms`` is that of the timed mode (the conv as conv1).
 
 The last three lines are a JSON object describing every kernel of the path
 (``launches`` counted over the three steps of each train slice, phases 9,
-13 and 17; ``serve_launches`` over the three requests of phases 5, 12 and
-16), the card's
+13, 17 and 21, EDSR's adding to RCAN's ``wino_conv`` and
+``wino_conv_bwd``; ``serve_launches`` over the three requests of phases 5,
+12, 16 and 20; the chain's over the one probe launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
 """
@@ -393,7 +414,7 @@ def phase_slice(dev, seed):
             raise CheckFailed(f"request {i}: non-finite or misshapen output")
     nl, nb = MODEL_CFG["nlayers"], MODEL_CFG["nblocks"]
     want = {"wino_conv": NREQ * (nl * (2 * nb + 1) + 1), "ca_skip": NREQ * nl * nb,
-            "wino_conv_bwd": 0, "ca_skip_bwd": 0}
+            "wino_conv_bwd": 0, "ca_skip_bwd": 0, "wino_chain": 0}
     say("5 slice launches", launches=launches, expected=want)
     if launches != want:
         raise CheckFailed(f"kernel launches {launches} != expected {want}")
@@ -705,7 +726,7 @@ def phase_train(dev, seed):
     # backward: every conv's adjoint, and the 2 convs of each RCAB again
     nconv = nl * (2 * nb + 1) + 1
     want = {"wino_conv": nconv + 2 * nl * nb, "ca_skip": nl * nb,
-            "wino_conv_bwd": nconv, "ca_skip_bwd": nl * nb}
+            "wino_conv_bwd": nconv, "ca_skip_bwd": nl * nb, "wino_chain": 0}
     torch.cuda.reset_peak_memory_stats(dev)
     total = dict.fromkeys(want, 0)
     for i, hr in enumerate(batches):
@@ -1583,6 +1604,416 @@ def phase_fg_train(dev, seed):
     return total
 
 
+# ------------------------------------------ EDSR and the chain (18-21)
+# config/model/edsr.yaml, plus the Winograd trunk (the ungated group)
+EDSR_CFG = dict(name="edsr", nfeatures=64, nlayers=16, loss_fn="l2", kernel_size=3,
+                res_scale=1.0, batch_norm=False, bias=True, downscale_factors=[2, 2],
+                ups_mode="bicubic", lane_pack=2, winograd=4)
+CHAIN_K = 20
+
+
+def phase_chain_kernels(dev, rng):
+    """Phase 18: the scaled residual epilogue of the conv kernel, and the
+    conv chain (K = 20 convs + ReLU in one launch) against its twin, bit
+    for bit against K ``wino_conv`` launches, timed against them and
+    against K channels_last ``F.conv2d`` + ReLU."""
+    import torch
+    import torch.nn.functional as F
+    from sres_tpu_torch.ops import winograd_conv as wc
+    from sres_tpu_torch.ops.winograd import transform_weights
+    f32, bf16 = torch.float32, torch.bfloat16
+    c = SHAPE[1]
+    x, res = _rand(rng, dev, SHAPE), _rand(rng, dev, SHAPE)
+    bound = 1 / math.sqrt(9 * c)
+    uni = lambda a, *s: torch.from_numpy(rng.uniform(-a, a, s).astype(np.float32)).to(dev)
+    w, b = uni(bound, c, c, 3, 3), uni(bound, c)
+    worst = 0.0
+    for m in (2, 4):
+        u = transform_weights(w, m)
+        for s in (0.1, 0.8):
+            run = lambda fn, dt: fn(x.to(dt), u, b, m, False, res.to(dt), s)
+            out = check_pair(f"m{m}_res_scale{s}", run(wc.wino_conv, f32),
+                             run(wc.wino_conv_plain, f32), run(wc.wino_conv, bf16),
+                             run(wc.wino_conv_plain, bf16))
+            torch.cuda.synchronize()
+            say("18 kernel wino_conv scaled residual", **out)
+        for dt in (f32, bf16):
+            same = torch.equal(wc.wino_conv(x.to(dt), u, b, m, residual=res.to(dt),
+                                            res_scale=1.0),
+                               wc.wino_conv(x.to(dt), u, b, m, residual=res.to(dt)))
+            if not same:
+                raise CheckFailed(f"res_scale 1.0 changed the epilogue's bits (m{m}, {dt})")
+    # the scaled epilogue's cost (EDSR's conv2), bf16, m=4: x and res read,
+    # y written, U and the bias read
+    u4b, xb, rb = transform_weights(w, 4).bfloat16(), x.bfloat16(), res.bfloat16()
+    ep = dict(ms=time_ms(lambda: wc.wino_conv(xb, u4b, b, 4, False, rb, 0.8)),
+              unscaled_ms=time_ms(lambda: wc.wino_conv(xb, u4b, b, 4, False, rb)),
+              plain_ms=time_ms(lambda: wc.wino_conv_plain(xb, u4b, b, 4, False, rb, 0.8),
+                               iters=3, warmup=1),
+              bound_ms=bound_ms(3 * 2 * xb.numel() + 2 * u4b.numel() + 4 * c,
+                                tap_flops(SHAPE, 4)))
+    say("18 kernel wino_conv scaled residual timing", shape=SHAPE, m=4, dtype="bf16",
+        res_scale=0.8, **ep)
+
+    # the chain: kaiming-scale weights keep the activations' scale over 20
+    # convs + ReLU
+    kb = math.sqrt(6 / (9 * c))
+    ws, bv = uni(kb, CHAIN_K, c, c, 3, 3), uni(0.05, CHAIN_K, c)
+    us = {dt: transform_weights(ws, 4).to(dt) for dt in (f32, bf16)}
+    # the probe path: one launch of the chain, counted alone
+    wc.reset_launches()
+    y_chain = wc.wino_chain_fwd(xb, us[bf16], bv, 4)
+    torch.cuda.synchronize()
+    launches = {"wino_chain": wc.LAUNCHES["wino_chain"]}
+    say("18 chain launches", launches=launches, expected={"wino_chain": 1})
+    if launches != {"wino_chain": 1}:
+        raise CheckFailed(f"chain launches {launches} != 1")
+
+    def separate(xx, u):
+        for i in range(CHAIN_K):
+            xx = wc.wino_conv(xx, u[i], bv[i], 4, relu=True)
+        return xx
+
+    for dt in (f32, bf16):
+        k = y_chain if dt == bf16 else wc.wino_chain_fwd(x, us[f32], bv, 4)
+        same = torch.equal(k, separate(x.to(dt), us[dt]))
+        say("18 chain vs separate launches", dtype=str(dt), bitwise_equal=same)
+        if not same:
+            raise CheckFailed(f"chain != {CHAIN_K} wino_conv launches ({dt})")
+    out = check_pair(f"chain K={CHAIN_K} m4", wc.wino_chain_fwd(x, us[f32], bv, 4),
+                     wc.wino_chain_fwd_plain(x, us[f32], bv, 4), y_chain,
+                     wc.wino_chain_fwd_plain(xb, us[bf16], bv, 4))
+    torch.cuda.synchronize()
+    say("18 kernel wino_chain", **out)
+    worst = out["bf16_vs_plain_abs"]
+
+    # timing, bf16: one chain launch, K launches of the conv kernel, the
+    # twin, and K channels_last F.conv2d + ReLU (the library yardstick; no
+    # one PyTorch call computes the chain)
+    wsb, bvb = ws.bfloat16(), bv.bfloat16()
+
+    def convs():
+        y = xb
+        for i in range(CHAIN_K):
+            y = F.relu(F.conv2d(y, wsb[i], bvb[i], padding=1))
+        return y
+
+    ms = time_ms(lambda: wc.wino_chain_fwd(xb, us[bf16], bv, 4), iters=5)
+    sep_ms = time_ms(lambda: separate(xb, us[bf16]), iters=5)
+    plain_ms = time_ms(lambda: wc.wino_chain_fwd_plain(xb, us[bf16], bv, 4), iters=2,
+                       warmup=1)
+    conv2d_ms = time_ms(convs, iters=5)
+    dev_ms = {name: profile_device(f"18 chain profile {name}", fn, top=4)
+              for name, fn in (("chain", lambda: wc.wino_chain_fwd(xb, us[bf16], bv, 4)),
+                               ("separate", lambda: separate(xb, us[bf16])))}
+    # x read and y written once (bf16), K U operands (bf16) and biases (f32);
+    # the K convs' tap products
+    nbytes = 2 * 2 * xb.numel() + 2 * us[bf16].numel() + 4 * bv.numel()
+    flops = CHAIN_K * tap_flops(SHAPE, 4)
+    bnd = bound_ms(nbytes, flops)
+    say("18 kernel wino_chain timing", shape=SHAPE, m=4, K=CHAIN_K, dtype="bf16", ms=ms,
+        separate_launches_ms=sep_ms, plain_ms=plain_ms, k_conv2d_relu_ms=conv2d_ms,
+        device_ms=dev_ms, bound_ms=bnd, bound_by=bound_by(nbytes, flops),
+        separate_bound_ms=CHAIN_K * bound_ms(2 * 2 * xb.numel() + 2 * us[bf16][0].numel()
+                                             + 4 * c, tap_flops(SHAPE, 4)))
+    return launches, dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                          bound_by=bound_by(nbytes, flops), library_ms=None)
+
+
+def _direct_trunk(trunk, dev):
+    """The direct cuDNN trunk with the same weights: ResBlocks, body conv
+    and the skip, channels_last."""
+    import torch
+    from sres_tpu_torch.models.layers import Conv, ResBlock
+    n = len(trunk) - 1
+    body = torch.nn.Sequential(*[ResBlock(64, 3, True, trunk.res_scale) for _ in range(n)],
+                               Conv(64, 64, 3, True)).to(dev)
+    body.load_state_dict(trunk.state_dict())
+    body = body.to(memory_format=torch.channels_last)
+    return lambda x: body(x) + x, body
+
+
+def phase_edsr_trunk(dev, seed):
+    """Phase 19: one EDSR trunk (16 ResBlocks + body conv + skip, m=4,
+    b72): forward, stash and gradients, kernels against twins (the rule of
+    phase 8 for flipped gates; the backward kernels alone on one shared
+    stash), timed against the direct cuDNN trunk."""
+    import torch
+    from sres_tpu_torch.models.layers import init_torch_default
+    from sres_tpu_torch.models.wino_blocks import WinoResTrunk
+    from sres_tpu_torch.ops import winograd_conv as wc
+    f32, bf16 = torch.float32, torch.bfloat16
+    nb, s = EDSR_CFG["nlayers"], EDSR_CFG["res_scale"]
+    trunk = init_torch_default(WinoResTrunk(64, nb, 4, s), seed).to(dev)
+    rng = np.random.default_rng(seed + 8)
+    x, gy = _rand(rng, dev, SHAPE), _rand(rng, dev, SHAPE)
+    with torch.inference_mode():
+        outs = {}
+        for plain in (False, True):
+            trunk.plain = plain
+            for dt in (f32, bf16):
+                outs[(plain, dt)] = trunk(x.to(dt))
+        trunk.plain = False
+        torch.cuda.synchronize()
+        out = check_pair("edsr trunk forward", *(outs[k] for k in (
+            (False, f32), (True, f32), (False, bf16), (True, bf16))), GROUP_F32_TOL)
+        say("19 edsr trunk forward", **out)
+        del outs
+    with torch.no_grad():
+        sts = {}
+        for plain in (False, True):
+            for dt in (f32, bf16):
+                ws, bv, wt, bt = trunk._operands(dt)
+                st = []
+                (wc.wino_resgroup_fwd_plain if plain else wc.wino_resgroup_fwd)(
+                    x.to(dt), ws, bv, 4, wt, bt, s, st)
+                sts[(plain, dt)] = st
+        ws, bv = trunk._operands(f32)[:2]
+        flips = 0
+        for k in range(nb):
+            pre_k = wc.wino_conv(sts[(False, f32)][k], ws[k, 0], bv[k, 0], 4)
+            pre_p = wc.wino_conv_plain(sts[(True, f32)][k], ws[k, 0], bv[k, 0], 4)
+            flips += int(((pre_k > 0) != (pre_p > 0)).sum())
+        torch.cuda.synchronize()
+        out = check_pair("edsr trunk stash", *(_cat(sts[k]) for k in (
+            (False, f32), (True, f32), (False, bf16), (True, bf16))), GROUP_F32_TOL)
+        say("19 edsr trunk stash", slots=nb + 1, relu_gates=nb * x.numel(),
+            flipped_gates=flips, **out)
+        del sts
+    names = [n for n, _ in trunk.named_parameters()]
+    kinds = {"conv_w": lambda n: n.endswith("weight"), "conv_b": lambda n: n.endswith("bias")}
+
+    def grads(plain, dt):
+        trunk.plain = plain
+        xx = x.to(dt).detach().requires_grad_()
+        gs = torch.autograd.grad((trunk(xx).float() * gy).sum(), [xx, *trunk.parameters()])
+        res = {"dx": gs[0].float()}
+        for kind, sel in kinds.items():
+            res[kind] = _cat(g for n, g in zip(names, gs[1:]) if sel(n))
+        return res
+
+    tol = GROUP_F32_TOL if flips == 0 else FLIPPED_GRAD_F32_TOL
+    res = {(p, dt): grads(p, dt) for p in (False, True) for dt in (f32, bf16)}
+    trunk.plain = False
+    torch.cuda.synchronize()
+    for kind in ("dx", *kinds):
+        out = check_pair(f"edsr trunk grad {kind}", *(res[k][kind] for k in (
+            (False, f32), (True, f32), (False, bf16), (True, bf16))), tol)
+        say("19 edsr trunk backward", flipped_gates=flips, **out)
+    del res
+    with torch.no_grad():
+        ws, bv, wt, bt = trunk._operands(f32)
+        st = []
+        wc.wino_resgroup_fwd(x, ws, bv, 4, wt, bt, s, st)
+        rk = wc.wino_resgroup_bwd(gy, st, ws, bv, 4, wt, s)
+        rp = wc.wino_resgroup_bwd_plain(gy, st, ws, bv, 4, wt, s, conv=wc.wino_conv)
+        torch.cuda.synchronize()
+        del st
+    for name, a, b in zip(("dx", "dU", "db", "dUt", "dbt"), rk, rp):
+        err, bnd = float((a - b).abs().max()), GROUP_F32_TOL * float(b.abs().max())
+        say("19 edsr trunk backward kernels, same forward", grad=name, f32_err=err,
+            f32_bound=bnd)
+        if not err <= bnd:
+            raise CheckFailed(f"edsr trunk backward {name}: {err} > {bnd}")
+    del rk, rp
+
+    direct, body = _direct_trunk(trunk, dev)
+    runs = {"winograd": trunk, "direct": direct}
+    xb = x.bfloat16().contiguous(memory_format=torch.channels_last)
+
+    def fwd(name, i):
+        with torch.inference_mode():
+            runs[name](xb)
+
+    def fwd_bwd(name, i):
+        xx = xb.detach().requires_grad_()
+        ps = list(trunk.parameters() if name == "winograd" else body.parameters())
+        torch.autograd.grad((runs[name](xx).float() * gy).sum(), [xx, *ps])
+
+    tf = _windows(fwd, tuple(runs), 3)
+    tb = _windows(fwd_bwd, tuple(runs), 2)
+    trunk.plain = True
+    plain = dict(forward_ms=time_ms(lambda: fwd("winograd", 0), iters=2, warmup=1),
+                 fwd_bwd_ms=time_ms(lambda: fwd_bwd("winograd", 0), iters=2, warmup=1))
+    trunk.plain = False
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd_bwd("winograd", 0)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    say("19 edsr trunk timing", dtype="bf16",
+        forward_ms={k: v[0] for k, v in tf.items()},
+        fwd_bwd_ms={k: v[0] for k, v in tb.items()}, plain=plain,
+        forward_windows={k: v[1] for k, v in tf.items()},
+        fwd_bwd_windows={k: v[1] for k, v in tb.items()}, peak_mem_gb_winograd_fwd_bwd=peak)
+
+
+def phase_edsr_serve(dev, seed):
+    """Phase 20: EDSR ×4 (config/model/edsr.yaml + winograd: 4) served."""
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    from sres_tpu_torch.trainer.step import build_eval_step, make_step_config
+    model = build_model(EDSR_CFG, 1, 1, precision="bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, EDSR_CFG)
+    eval_step = build_eval_step(model, sc)
+    rng = np.random.default_rng(seed + 9)
+    reqs = [torch.from_numpy(smooth_fields(rng, BATCH, HR)).to(dev) for _ in range(NREQ)]
+    weight = torch.ones(BATCH, device=dev)
+    eval_step(reqs[0], weight)                 # builds the U cache
+    torch.cuda.synchronize()
+
+    _reset_all_launches()
+    results = [eval_step(hr, weight) for hr in reqs]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_launches().items() if v}
+    for i, (met, (lr, out, tar, interp)) in enumerate(results):
+        s, si = float(met["sloss"]), float(met["interp_sloss"])
+        say("20 edsr serve request", request=i, sloss=s, interp_sloss=si,
+            ratio_pct=100.0 * s / si, out_shape=list(out.shape))
+        if not (math.isfinite(s) and math.isfinite(si) and si > 0
+                and tuple(out.shape) == (BATCH, 1, HR, HR)
+                and bool(torch.isfinite(out).all())):
+            raise CheckFailed(f"edsr request {i}: non-finite or misshapen output")
+    want = {"wino_conv": NREQ * (2 * EDSR_CFG["nlayers"] + 1)}
+    say("20 edsr serve launches", launches=launches, expected=want)
+    if launches != want:
+        raise CheckFailed(f"edsr serving launches {launches} != expected {want}")
+
+    out_k = results[0][1][1]
+    set_plain_twins(model, True)
+    out_p = eval_step(reqs[0], weight)[1][1]
+    set_plain_twins(model, False)
+    ref = build_model(EDSR_CFG, 1, 1, precision="f32", device=dev)
+    ref.load_state_dict(model.state_dict())
+    set_plain_twins(ref, True)
+    out_t = build_eval_step(ref, sc)(reqs[0], weight)[1][1]
+    del ref
+    e_k, e_p = rel_err(out_k, out_t), rel_err(out_p, out_t)
+    say("20 edsr serve vs plain", bf16_kernel_rel=e_k, bf16_plain_rel=e_p,
+        bound=2 * e_p + 1e-4, kernel_vs_plain_abs=float((out_k - out_p).abs().max()))
+    if not e_k <= 2 * e_p + 1e-4:
+        raise CheckFailed(f"edsr serving outside the bf16 envelope: {e_k} > 2*{e_p}+1e-4")
+
+    # the same weights with winograd unset (the config as users run it)
+    direct = build_model(dict(EDSR_CFG, winograd=None), 1, 1, "bf16", device=dev)
+    direct.load_state_dict(model.state_dict())
+    steps = {"winograd": eval_step, "direct": build_eval_step(direct, sc)}
+    timing = _windows(lambda name, i: steps[name](reqs[i % NREQ], weight), tuple(steps),
+                      NREQ)
+    for name, (med, ws) in timing.items():
+        say(f"20 edsr serve timing {name}", windows_ms_per_request=ws, ms_per_request=med,
+            tiles_per_s=BATCH / (med / 1e3))
+    torch.cuda.reset_peak_memory_stats(dev)
+    eval_step(reqs[0], weight)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    busy = {name: profile_device(f"20 edsr serve profile {name}",
+                                 lambda: steps[name](reqs[0], weight), top=12)
+            for name in steps}
+    say("20 edsr serve summary", **{f"{k}_ms_per_request": v[0] for k, v in timing.items()},
+        **{f"{k}_tiles_per_s": BATCH / (v[0] / 1e3) for k, v in timing.items()},
+        **{f"{k}_device_ms": v for k, v in busy.items()},
+        **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy},
+        peak_mem_gb_winograd_request=peak)
+    return launches
+
+
+def phase_edsr_train(dev, seed):
+    """Phase 21: EDSR ×4 at winograd: 4 trained (Adam, lr 1e-4, b72)."""
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
+                                             make_step_config)
+    nl = EDSR_CFG["nlayers"]
+    model = build_model(EDSR_CFG, 1, 1, "bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, EDSR_CFG)
+    rng = np.random.default_rng(seed + 10)
+    batches = [torch.from_numpy(smooth_fields(rng, BATCH, HR)).to(dev) for _ in range(NSTEP)]
+    weight = torch.ones(BATCH, device=dev)
+
+    # one step's loss and gradients: kernels (bf16) and plain twins (bf16)
+    # against the plain twins in f32, the trunk and the rest
+    ref = build_model(EDSR_CFG, 1, 1, "f32", device=dev)
+    ref.load_state_dict(model.state_dict())
+    set_plain_twins(ref, True)
+    lt, gt = _loss_and_grads(ref, sc, batches[0], weight)
+    del ref
+    lk, gk = _loss_and_grads(model, sc, batches[0], weight)
+    set_plain_twins(model, True)
+    lp, gp = _loss_and_grads(model, sc, batches[0], weight)
+    set_plain_twins(model, False)
+    torch.cuda.synchronize()
+    parts = {"trunk": lambda n: n.startswith("body."),
+             "head, tail": lambda n: not n.startswith("body."),
+             "body conv": lambda n: n.startswith(f"body.{nl}.")}
+    for part, sel in parts.items():
+        k, p, t = (_cat(v for n, v in gd.items() if sel(n)) for gd in (gk, gp, gt))
+        for v in (k, p, t, lk, lp, lt):
+            if not torch.isfinite(v).all():
+                raise CheckFailed(f"edsr train {part}: non-finite gradient or loss")
+        e_k, e_p = rel_err(k, t), rel_err(p, t)
+        say("21 edsr train step vs plain", part=part, bf16_kernel_rel=e_k,
+            bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
+        if not e_k <= 2 * e_p + 1e-4:
+            raise CheckFailed(f"edsr train {part}: outside the bf16 envelope "
+                              f"{e_k} > 2*{e_p}+1e-4")
+    e_k, e_p = rel_err(lk, lt), rel_err(lp, lt)
+    say("21 edsr train step vs plain", part="loss", bf16_kernel_rel=e_k,
+        bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
+    if not e_k <= 2 * e_p + 1e-4:
+        raise CheckFailed(f"edsr train loss outside the bf16 envelope {e_k} > 2*{e_p}+1e-4")
+    del gk, gp, gt
+
+    # three Adam steps on one batch (its loss must fall); launches per
+    # step: forward 2 convs per ResBlock and the body conv, backward the
+    # ResBlocks' conv1 again and every conv's adjoint
+    step = build_train_step(model, build_optimizer(model, TRAIN_TASK), sc)
+    want = {"wino_conv": 3 * nl + 1, "wino_conv_bwd": 2 * nl + 1}
+    torch.cuda.reset_peak_memory_stats(dev)
+    total, losses = dict.fromkeys(want, 0), []
+    for i in range(NSTEP):
+        _reset_all_launches()
+        met = step(batches[0], weight)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _all_launches().items() if v}
+        vals = {k: float(v) for k, v in met.items()}
+        say("21 edsr train step", step=i, **vals, launches=launches, expected=want)
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise CheckFailed(f"edsr train step {i}: non-finite metrics {vals}")
+        if launches != want:
+            raise CheckFailed(f"edsr train step {i}: launches {launches} != {want}")
+        losses.append(vals["mloss"])
+        for k in total:
+            total[k] += launches[k]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not losses[-1] < losses[0]:
+        raise CheckFailed(f"edsr loss did not fall over {NSTEP} Adam steps: {losses}")
+
+    direct = build_model(dict(EDSR_CFG, winograd=None), 1, 1, "bf16", device=dev)
+    direct.load_state_dict(model.state_dict())
+    steps = {"winograd": step,
+             "direct": build_train_step(direct, build_optimizer(direct, TRAIN_TASK), sc)}
+    timing = _windows(lambda name, i: steps[name](batches[i % NSTEP], weight),
+                      tuple(steps), 2)
+    peaks = {"winograd": peak_gb}
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps["direct"](batches[0], weight)
+    torch.cuda.synchronize()
+    peaks["direct"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    for name, (med, ws) in timing.items():
+        say(f"21 edsr train timing {name}", windows_ms_per_step=ws, median_ms_per_step=med,
+            tiles_per_s=BATCH / (med / 1e3), peak_mem_gb=peaks[name])
+    busy = {name: profile_device(f"21 edsr train profile {name}",
+                                 lambda: steps[name](batches[0], weight), top=14)
+            for name in steps}
+    say("21 edsr train summary", **{f"{k}_ms_per_step": v[0] for k, v in timing.items()},
+        **{f"{k}_tiles_per_s": BATCH / (v[0] / 1e3) for k, v in timing.items()},
+        **{f"{k}_device_ms": v for k, v in busy.items()},
+        **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy},
+        **{f"peak_mem_gb_{k}": v for k, v in peaks.items()}, losses=losses)
+    return total
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1625,6 +2056,14 @@ def main() -> int:
     phase_fg_group(dev, args.seed)
     serve_launches.update(phase_fg_serve(dev, args.seed))
     launches.update(phase_fg_train(dev, args.seed))
+    chain_launches, kern["wino_chain"] = phase_chain_kernels(dev, rng)
+    phase_edsr_trunk(dev, args.seed)
+    # EDSR's trunk runs on the same conv and conv-adjoint kernels as RCAN's
+    for k, v in phase_edsr_serve(dev, args.seed).items():
+        serve_launches[k] += v
+    for k, v in phase_edsr_train(dev, args.seed).items():
+        launches[k] += v
+    launches.update(chain_launches)
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -1640,7 +2079,8 @@ def main() -> int:
              "fgroup_conv": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
              "fgroup_ca": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
              "fgroup_wgrad": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
-             "fgroup_ca_bwd": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194")}
+             "fgroup_ca_bwd": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
+             "wino_chain": (src, "sres_tpu/ops/pallas/winograd_conv.py:339")}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
              launches=launches[k], serve_launches=serve_launches.get(k, 0), **kern[k])

@@ -11,21 +11,26 @@ Slices ported so far: RCAN's serving/eval path and its train step (direct
 convs, ``model.winograd: 2|4`` with the forward and backward of every trunk
 conv on the CUDA Winograd kernels, or ``model.fused: true`` with every
 residual group, forward and backward, on the CUDA direct-conv group
-kernels), and SwinIR's serving and train step with every window
-attention, forward and backward, on the CUDA window-attention kernels.
+kernels), SwinIR's serving and train step with every window attention,
+forward and backward, on the CUDA window-attention kernels, and EDSR's
+(``model.winograd: 2|4`` running its whole trunk as one ungated group on
+the Winograd kernels). ``ops.winograd_conv.wino_chain_fwd`` runs K conv +
+ReLU layers in one cooperative launch (a probe; no model calls it).
 
   device      — device and compute-dtype resolution
   ops         — resize, Winograd math, window attention, the fused group,
                 kernel wrappers + plain twins and their autograd
                 Functions, CUDA
-  models      — RCAN, SwinIR, their layers, the Winograd trunk blocks and
-                the fused residual group, registry
+  models      — RCAN, SwinIR, EDSR, their layers, the Winograd trunk
+                blocks and the fused residual group, registry
   trainer     — losses, the train and eval steps, the optimizer
-  util        — weight transfer from JAX variable trees (RCAN, SwinIR)
+  util        — weight transfer from JAX variable trees (RCAN, SwinIR,
+                EDSR)
+  probes      — card-only measurements of kernel variants (the chain)
 
 CPU tests: ``tests/test_torch_*.py`` (plain twins against the JAX package);
 card: ``python3 chip_smoke.py`` (phases 10-13 are SwinIR's, 14-17 RCAN's
-with ``model.fused``).
+with ``model.fused``, 18 the chain's, 19-21 EDSR's).
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
 """Building blocks in PyTorch (counterparts of sres_tpu/models/layers.py
-:193-223 Conv, :352-445 CALayer/RCAB/ResidualGroup, :497-530 SPUpsample; and
-flax's Dense and LayerNorm as SwinIR uses them).
+:193-223 Conv, :352-445 CALayer/RCAB/ResidualGroup, :448-473 ResBlock,
+:497-530 SPUpsample; and flax's Dense and LayerNorm as SwinIR uses them).
 
 Module and parameter names follow the reference torch networks
-(sres/model/rcan/network.py, common/upsample.py) — the naming that
-``sres_tpu.util.torch_export.export_rcan`` emits — so an exported JAX
-state dict loads with ``strict=True``.
+(sres/model/rcan/network.py, edsr/network.py, common/residual.py,
+common/upsample.py) — the naming that ``sres_tpu.util.torch_export``'s
+``export_rcan`` and ``export_edsr`` emit — so an exported JAX state dict
+loads with ``strict=True``.
 
 Precision: parameters are f32; every module computes in its input's dtype,
 casting its weights at use (the JAX modules' ``dtype=``). These convs are
@@ -79,6 +80,22 @@ class ResidualGroup(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.body(x)
+
+
+class ResBlock(nn.Module):
+    """conv → ReLU → conv residual block scaled by ``res_scale`` (reference
+    common/residual.py:28): x + res_scale·body(x)."""
+
+    def __init__(self, features: int, kernel_size: int = 3, bias: bool = True,
+                 res_scale: float = 1.0):
+        super().__init__()
+        self.res_scale = res_scale
+        self.body = nn.Sequential(Conv(features, features, kernel_size, bias),
+                                  nn.ReLU(),
+                                  Conv(features, features, kernel_size, bias))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.body(x) * self.res_scale
 
 
 class SPUpsample(nn.Sequential):

@@ -1,6 +1,6 @@
 """Model factory (counterpart of sres_tpu/models/registry.py): model config
-→ ``nn.Module``. ``rcan`` and ``swinir`` are ported; every other name
-raises.
+→ ``nn.Module``. ``rcan``, ``swinir`` and ``edsr`` are ported; every other
+name raises.
 
 ``build_model`` returns an f32-parameter module on ``device`` (the card by
 default; ``device="cpu"`` only when asked, and an error when the card is
@@ -48,9 +48,9 @@ def build_model(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
                 device: str = "cuda"):
     dev = resolve_device(device)
     name = model_cfg["name"]
-    from sres_tpu_torch.models import rcan, swinir
+    from sres_tpu_torch.models import edsr, rcan, swinir
     from sres_tpu_torch.models.layers import init_torch_default
-    builders = {"rcan": rcan.build, "swinir": swinir.build}
+    builders = {"rcan": rcan.build, "swinir": swinir.build, "edsr": edsr.build}
     if name not in builders:
         raise NotImplementedError(
             f"model '{name}' is not ported yet (ROADMAP Queue 1 item 8); "

@@ -2,15 +2,18 @@
 sres_tpu/models/wino_blocks.py).
 
 ``WinoConv`` and ``WinoResidualGroup`` hold exactly the parameters of
-``layers.Conv`` and ``layers.ResidualGroup`` under the same names, so
-checkpoints are winograd-agnostic; only ``forward`` differs. The
+``layers.Conv`` and ``layers.ResidualGroup`` under the same names, and
+``WinoResTrunk`` those of EDSR's direct trunk (``nn.Sequential`` of
+``layers.ResBlock`` × nlayers and a ``layers.Conv``), so checkpoints are
+winograd-agnostic; only ``forward`` differs. The
 transform-domain weights U = G·w·Gᵀ are computed once per weight load (a
 cache keyed by every parameter's version counter and storage, and by the
 count of optimizer steps taken in the process) and kept in the activation
 dtype.
 
 Under autograd (grad enabled and an input or a parameter that requires
-grad) the modules route through ``WinoConvFn`` and ``WinoGroupTrailFn``,
+grad) the modules route through ``WinoConvFn``, ``WinoGroupTrailFn`` and
+``WinoResGroupTrailFn``,
 whose backward runs the hand-written backward kernels and returns each
 parameter's gradient; U is rebuilt after every optimizer step. Under
 ``torch.no_grad()`` or ``torch.inference_mode()`` they run the
@@ -28,12 +31,14 @@ import torch
 import torch.nn as nn
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
-from sres_tpu_torch.models.layers import Conv, ResidualGroup
+from sres_tpu_torch.models.layers import Conv, ResBlock, ResidualGroup
 from sres_tpu_torch.ops.winograd import transform_weights
 from sres_tpu_torch.ops.winograd_conv import (WinoConvFn, WinoGroupTrailFn,
-                                              wino_conv, wino_conv_plain,
-                                              wino_group_fwd,
-                                              wino_group_fwd_plain)
+                                              WinoResGroupTrailFn, wino_conv,
+                                              wino_conv_plain, wino_group_fwd,
+                                              wino_group_fwd_plain,
+                                              wino_resgroup_fwd,
+                                              wino_resgroup_fwd_plain)
 
 
 # A fused optimizer updates the parameters in place without bumping their
@@ -152,3 +157,46 @@ class WinoResidualGroup(ResidualGroup):
         ws, bv, cw1, cb1, cw2, cb2, wt, bt = ops
         return fn(x, ws, bv, cw1, cb1, cw2, cb2, self.m, wt, bt)
 
+
+class WinoResTrunk(nn.Sequential):
+    """EDSR's trunk: nlayers × ResBlock + body conv + the global skip as one
+    ungated ``wino_resgroup_fwd`` call (the JAX ``wino_resgroup_trail``);
+    parameters of the direct trunk ``nn.Sequential(ResBlock × nlayers,
+    Conv)`` under the same names. Its output includes the skip."""
+
+    def __init__(self, features: int, nlayers: int, m: int,
+                 res_scale: float = 1.0, bias: bool = True):
+        super().__init__(*[ResBlock(features, 3, bias, res_scale)
+                           for _ in range(nlayers)],
+                         Conv(features, features, 3, bias))
+        self.m, self.res_scale = m, res_scale
+        self.plain = False
+        self._cache: Optional[Tuple] = None
+
+    def _convs(self) -> List[Conv]:
+        """conv1, conv2 of each ResBlock in order, then the body conv."""
+        blocks = list(self)[:-1]
+        return [c for blk in blocks for c in (blk.body[0], blk.body[2])] + [self[-1]]
+
+    def _operands(self, dtype: torch.dtype) -> Tuple:
+        key = _key(self, dtype)
+        if self._cache is None or self._cache[0] != key:
+            with torch.no_grad():
+                convs = self._convs()
+                nb, c = len(convs) // 2, convs[0].out_channels
+                u = transform_weights(torch.stack([cv.weight for cv in convs]),
+                                      self.m).to(dtype)
+                b = torch.stack([_bias(cv) for cv in convs])
+                ws = u[:-1].reshape(nb, 2, *u.shape[1:])
+                self._cache = (key, (ws, b[:-1].reshape(nb, 2, c), u[-1], b[-1]))
+        return self._cache[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ops = self._operands(x.dtype)
+        if _records_grad(self, x):
+            params = [p for cv in self._convs() for p in (cv.weight, cv.bias)]
+            return WinoResGroupTrailFn.apply(x, ops, self.m, self.res_scale,
+                                             self.plain, *params)
+        fn = wino_resgroup_fwd_plain if self.plain else wino_resgroup_fwd
+        ws, bv, wt, bt = ops
+        return fn(x, ws, bv, self.m, wt, bt, self.res_scale)

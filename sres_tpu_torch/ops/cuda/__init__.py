@@ -53,7 +53,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_error_string.restype = ctypes.c_char_p
     lib.sres_error_string.argtypes = [i]
     lib.sres_wino_conv.restype = i
-    lib.sres_wino_conv.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+    f = ctypes.c_float
+    lib.sres_wino_conv.argtypes = [vp] * 5 + [i] * 6 + [f, i, vp]
+    lib.sres_wino_chain.restype = i
+    lib.sres_wino_chain.argtypes = [vp] * 5 + [i] * 8 + [vp]
     lib.sres_ca_skip.restype = i
     lib.sres_ca_skip.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                  i, i, i, i, i, i, i, vp]
@@ -65,7 +68,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_ca_skip_bwd.argtypes = [vp] * 14 + [i] * 6 + [vp]
     lib.sres_wattn_tokens.restype = i
     lib.sres_wattn_tokens.argtypes = []
-    f = ctypes.c_float
     lib.sres_wattn_fwd.restype = i
     lib.sres_wattn_fwd.argtypes = [vp] * 8 + [i] * 3 + [f] + [i] * 2 + [vp]
     lib.sres_wattn_bwd.restype = i

@@ -124,11 +124,20 @@ template <> __device__ __forceinline__ void at_t_apply<4>(const float* f, float*
   o[5] = f[3];
 }
 
+// An activation load: plain, or (kCoherent) ld.global.cg from L2, for a
+// kernel that reads what other blocks of the same launch wrote before a
+// grid-wide barrier (the read-only and L1 paths are not coherent there).
+template <bool kCoherent, typename T>
+__device__ __forceinline__ float load_act(const T* p) {
+  if constexpr (kCoherent) return to_f(__ldcg(p));
+  return to_f(*p);
+}
+
 // ------------------------------------------------------- input transform
 // Shared by the forward and backward conv kernels: V = BT . d . B of one (tile, input
 // channel), SAME zero padding, each stage rounded to T. The n*n loads are
 // unconditional (clamped address, zeroed value) so all are in flight at once.
-template <typename T, int M>
+template <typename T, int M, bool kCoherent = false>
 __device__ __forceinline__ void input_transform(const T* __restrict__ x, int g,
                                                 int ntiles, int h, int w, int ci,
                                                 float (&v)[M + 2][M + 2]) {
@@ -148,7 +157,7 @@ __device__ __forceinline__ void input_transform(const T* __restrict__ x, int g,
     for (int q = 0; q < N; ++q) {
       const int xx = x0 + q;
       const int xc = min(max(xx, 0), w - 1);
-      const float val = to_f(xb[((size_t)yc * w + xc) * kC]);
+      const float val = load_act<kCoherent>(xb + ((size_t)yc * w + xc) * kC);
       d[p][q] = (valid && yy == yc && xx == xc) ? val : 0.0f;
     }
   }

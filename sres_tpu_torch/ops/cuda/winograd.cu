@@ -3,7 +3,11 @@
 // Replaces the TPU Pallas kernels
 //   sres_tpu/ops/pallas/winograd_conv.py:_fwd_kernel        (wino_conv_quad forward)
 //   sres_tpu/ops/pallas/winograd_conv.py:_group_fwd_kernel  (RCAB chain: conv unit
-//       :492-525, channel attention + block skip :533-549, trailing conv :554-560)
+//       :492-525, channel attention + block skip :533-549, trailing conv :554-560;
+//       the ungated ResBlock skip x + res_scale * conv2 :545 is kernel (a)'s
+//       scaled residual epilogue)
+//   sres_tpu/ops/pallas/winograd_conv.py:_chain_fwd_kernel  (K conv+ReLU chain,
+//       kernel (c) below)
 // The TPU group kernel keeps one sample block resident in VMEM across a whole
 // residual group. One 48x48x64 bf16 tile is 288 KiB, more than an SM's shared
 // memory, and channel attention needs the mean over the whole tile, so here
@@ -29,6 +33,11 @@
 // into the inverse transform in registers, so M = V.U never leaves the SM.
 // Not yet: U staged once per block, wgmma/TMA, fusing the RCAB chain.
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <type_traits>
+
 #include "wino_common.cuh"
 
 namespace {
@@ -51,14 +60,18 @@ __device__ __forceinline__ void fold_tap(float* yacc, float m, int ti, int tj) {
   }
 }
 
-// Epilogue value: + bias (+ ReLU), round to T, optional residual sum.
+// Epilogue value: + bias (+ ReLU), round to T, optional scaled residual
+// sum r + res_scale * o (the JAX order, winograd_conv.py:547-549: the
+// product, then the sum; written with __fmul_rn/__fadd_rn so that nvcc
+// does not contract it into an FMA JAX does not have). At res_scale 1 the
+// product is exact, so the sum is the unscaled epilogue's, bit for bit.
 template <typename T>
 __device__ __forceinline__ float finish(float acc, float b, int relu,
-                                        const float* r, int k) {
+                                        const float* r, int k, float res_scale) {
   float o = acc + b;
   if (relu) o = fmaxf(o, 0.0f);
   o = rnd<T>(o);
-  return r != nullptr ? rnd<T>(r[k] + o) : o;
+  return r != nullptr ? rnd<T>(__fadd_rn(r[k], __fmul_rn(res_scale, o))) : o;
 }
 
 // (a, f32) tap products on the FMA pipes. Block = 16 tiles x 64 output
@@ -67,21 +80,20 @@ __device__ __forceinline__ float finish(float acc, float b, int relu,
 constexpr int kF32Tiles = kThreads / kCoQuads;
 constexpr int kF32Row = kF32Tiles + 1;
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-wino_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ u,
-                     const float* __restrict__ bias, const float* __restrict__ res,
-                     float* __restrict__ y, int nimg, int h, int w, int relu) {
+template <int M, bool kCoherent>
+__device__ __forceinline__ void conv_tiles_f32(
+    const float* __restrict__ x, const float* __restrict__ u,
+    const float* __restrict__ bias, const float* __restrict__ res,
+    float* __restrict__ y, int nimg, int h, int w, int relu, float res_scale,
+    int tile0, float* vs) {                           // vs: [N*N][kC][kF32Row]
   constexpr int N = M + 2, TB = kF32Tiles;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* vs = reinterpret_cast<float*>(smem_raw);      // [N*N][kC][kF32Row]
   const int th = h / M, tw = w / M, ntiles = nimg * th * tw;
-  const int tile0 = blockIdx.x * TB, tid = threadIdx.x;
+  const int tid = threadIdx.x;
 
   for (int item = tid; item < TB * kC; item += kThreads) {
     const int j = item / kC, ci = item % kC;
     float v[N][N];
-    input_transform<float, M>(x, tile0 + j, ntiles, h, w, ci, v);
+    input_transform<float, M, kCoherent>(x, tile0 + j, ntiles, h, w, ci, v);
 #pragma unroll
     for (int ti = 0; ti < N; ++ti)
 #pragma unroll
@@ -118,24 +130,36 @@ wino_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ u,
   }
 
   const int g = tile0 + j;
-  if (g >= ntiles) return;
-  const int im = g / (th * tw), rr = (g / tw) % th, cc = g % tw;
-  float b[4];
-  load4(bias + co0, b);
+  if (g < ntiles) {
+    const int im = g / (th * tw), rr = (g / tw) % th, cc = g % tw;
+    float b[4];
+    load4(bias + co0, b);
 #pragma unroll
-  for (int uu = 0; uu < M; ++uu) {
+    for (int uu = 0; uu < M; ++uu) {
 #pragma unroll
-    for (int vv = 0; vv < M; ++vv) {
-      const size_t off = (((size_t)im * h + rr * M + uu) * w + cc * M + vv) * kC + co0;
-      float r[4], o[4];
-      if (res != nullptr) load4(res + off, r);
+      for (int vv = 0; vv < M; ++vv) {
+        const size_t off = (((size_t)im * h + rr * M + uu) * w + cc * M + vv) * kC + co0;
+        float r[4], o[4];
+        if (res != nullptr) load4(res + off, r);
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        o[q] = finish<float>(acc_y[q][uu * M + vv], b[q], relu,
-                             res != nullptr ? r : nullptr, q);
-      store4(y + off, o);
+        for (int q = 0; q < 4; ++q)
+          o[q] = finish<float>(acc_y[q][uu * M + vv], b[q], relu,
+                               res != nullptr ? r : nullptr, q, res_scale);
+        store4(y + off, o);
+      }
     }
   }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+wino_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ u,
+                     const float* __restrict__ bias, const float* __restrict__ res,
+                     float* __restrict__ y, int nimg, int h, int w, int relu,
+                     float res_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  conv_tiles_f32<M, false>(x, u, bias, res, y, nimg, h, w, relu, res_scale,
+                           blockIdx.x * kF32Tiles, reinterpret_cast<float*>(smem_raw));
 }
 
 // (a, bf16) tap products on the tensor cores: mma.sync m16n8k16, bf16
@@ -149,21 +173,20 @@ wino_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ u,
 // where one 166 KB block per SM ran its phases back to back). U arrives
 // in fragment order (see sres_wino_conv): one coalesced 8-byte load per
 // lane per (tap, n8 block, k-step).
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-wino_conv_bf16_kernel(const bf16* __restrict__ x, const uint2* __restrict__ ufrag,
-                      const float* __restrict__ bias, const bf16* __restrict__ res,
-                      bf16* __restrict__ y, int nimg, int h, int w, int relu) {
+template <int M, bool kCoherent>
+__device__ __forceinline__ void conv_tiles_bf16(
+    const bf16* __restrict__ x, const uint2* __restrict__ ufrag,
+    const float* __restrict__ bias, const bf16* __restrict__ res,
+    bf16* __restrict__ y, int nimg, int h, int w, int relu, float res_scale,
+    int tile0, bf16* vs) {                            // vs: [N*N][TB][kMmaRow]
   constexpr int N = M + 2, TB = kMmaTiles;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* vs = reinterpret_cast<bf16*>(smem_raw);        // [N*N][TB][kMmaRow]
   const int th = h / M, tw = w / M, ntiles = nimg * th * tw;
-  const int tile0 = blockIdx.x * TB, tid = threadIdx.x;
+  const int tid = threadIdx.x;
 
   for (int item = tid; item < TB * kC; item += kThreads) {
     const int j = item / kC, ci = item % kC;
     float v[N][N];
-    input_transform<bf16, M>(x, tile0 + j, ntiles, h, w, ci, v);
+    input_transform<bf16, M, kCoherent>(x, tile0 + j, ntiles, h, w, ci, v);
 #pragma unroll
     for (int ti = 0; ti < N; ++ti)
 #pragma unroll
@@ -224,13 +247,70 @@ wino_conv_bf16_kernel(const bf16* __restrict__ x, const uint2* __restrict__ ufra
           r[1] = hi_bf(rw);
         }
         const float* rp = res != nullptr ? r : nullptr;
-        const float o0 = finish<bf16>(acc_y[2 * hr][uu * M + vv], b0, relu, rp, 0);
-        const float o1 = finish<bf16>(acc_y[2 * hr + 1][uu * M + vv], b1, relu, rp, 1);
+        const float o0 = finish<bf16>(acc_y[2 * hr][uu * M + vv], b0, relu, rp, 0,
+                                        res_scale);
+        const float o1 = finish<bf16>(acc_y[2 * hr + 1][uu * M + vv], b1, relu, rp, 1,
+                                        res_scale);
         // o0, o1 are bf16-representable: truncation is exact
         *reinterpret_cast<uint32_t*>(y + off) =
             (__float_as_uint(o0) >> 16) | (__float_as_uint(o1) & 0xffff0000u);
       }
     }
+  }
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+wino_conv_bf16_kernel(const bf16* __restrict__ x, const uint2* __restrict__ ufrag,
+                      const float* __restrict__ bias, const bf16* __restrict__ res,
+                      bf16* __restrict__ y, int nimg, int h, int w, int relu,
+                      float res_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  conv_tiles_bf16<M, false>(x, ufrag, bias, res, y, nimg, h, w, relu, res_scale,
+                            blockIdx.x * kMmaTiles, reinterpret_cast<bf16*>(smem_raw));
+}
+
+// ------------------------------------------------ kernel (c): conv chain
+// K convs (+ bias, + ReLU) in one persistent cooperative launch (replaces
+// sres_tpu/ops/pallas/winograd_conv.py:_chain_fwd_kernel, :339). The TPU
+// kernel keeps a sample block resident in VMEM across the K convs; here a
+// 48x48x64 bf16 sample (288 KiB) does not fit an SM, so the activations
+// ping-pong through device memory between y and one scratch buffer (2 x
+// 21 MB at batch 72 in bf16: both fit the 50 MB L2) and a grid-wide
+// barrier separates the convs. Each conv runs the tile-block code of
+// kernel (a) over a grid-stride loop, so the chain equals K launches of
+// kernel (a) bit for bit; what one launch saves is K - 1 launches and
+// their host wrappers. Activations are read with ld.global.cg (coherent
+// at L2 after the barrier). The grid is the co-resident maximum
+// (occupancy x SMs), as a cooperative launch requires.
+template <int M, typename T, typename U>
+__global__ void __launch_bounds__(kThreads)
+wino_chain_kernel(const T* x, const U* __restrict__ u, size_t ustride,
+                  const float* __restrict__ bias, T* buf, T* y, int nchain,
+                  int nimg, int h, int w, int relu) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int TB = kBf16 ? kMmaTiles : kF32Tiles;
+  const int ntiles = nimg * (h / M) * (w / M);
+  const int nblk = (ntiles + TB - 1) / TB;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int k = 0; k < nchain; ++k) {
+    // conv k writes y when nchain - 1 - k is even, else buf: the last conv
+    // lands in y and no conv reads the buffer it writes
+    const T* src = k == 0 ? x : ((nchain - k) % 2 == 0 ? y : buf);
+    T* dst = (nchain - 1 - k) % 2 == 0 ? y : buf;
+    for (int blk = blockIdx.x; blk < nblk; blk += gridDim.x) {
+      if constexpr (kBf16)
+        conv_tiles_bf16<M, true>(src, u + k * ustride, bias + k * kC, nullptr, dst,
+                                 nimg, h, w, relu, 1.0f, blk * TB,
+                                 reinterpret_cast<bf16*>(smem_raw));
+      else
+        conv_tiles_f32<M, true>(src, u + k * ustride, bias + k * kC, nullptr, dst,
+                                nimg, h, w, relu, 1.0f, blk * TB,
+                                reinterpret_cast<float*>(smem_raw));
+      __syncthreads();                     // vs is rewritten by the next block
+    }
+    if (k + 1 < nchain) grid.sync();
   }
 }
 
@@ -300,7 +380,8 @@ ca_gate_skip_kernel(const T* __restrict__ q, const T* __restrict__ r,
 
 template <int M>
 int launch_conv_f32(const void* x, const void* u, const float* bias, const void* res,
-                    void* y, int nimg, int h, int w, int relu, cudaStream_t stream) {
+                    void* y, int nimg, int h, int w, int relu, float res_scale,
+                    cudaStream_t stream) {
   const size_t smem = (size_t)(M + 2) * (M + 2) * kC * kF32Row * sizeof(float);
   static bool done = false;
   const cudaError_t e = allow_smem(wino_conv_f32_kernel<M>, smem, done);
@@ -308,13 +389,14 @@ int launch_conv_f32(const void* x, const void* u, const float* bias, const void*
   const int ntiles = nimg * (h / M) * (w / M);
   wino_conv_f32_kernel<M><<<(ntiles + kF32Tiles - 1) / kF32Tiles, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(u), bias,
-      static_cast<const float*>(res), static_cast<float*>(y), nimg, h, w, relu);
+      static_cast<const float*>(res), static_cast<float*>(y), nimg, h, w, relu, res_scale);
   return (int)cudaGetLastError();
 }
 
 template <int M>
 int launch_conv_bf16(const void* x, const void* u, const float* bias, const void* res,
-                     void* y, int nimg, int h, int w, int relu, cudaStream_t stream) {
+                     void* y, int nimg, int h, int w, int relu, float res_scale,
+                     cudaStream_t stream) {
   const size_t smem = (size_t)(M + 2) * (M + 2) * kMmaTiles * kMmaRow * sizeof(bf16);
   static bool done = false;
   const cudaError_t e = allow_smem(wino_conv_bf16_kernel<M>, smem, done);
@@ -322,7 +404,58 @@ int launch_conv_bf16(const void* x, const void* u, const float* bias, const void
   const int ntiles = nimg * (h / M) * (w / M);
   wino_conv_bf16_kernel<M><<<(ntiles + kMmaTiles - 1) / kMmaTiles, kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint2*>(u), bias,
-      static_cast<const bf16*>(res), static_cast<bf16*>(y), nimg, h, w, relu);
+      static_cast<const bf16*>(res), static_cast<bf16*>(y), nimg, h, w, relu, res_scale);
+  return (int)cudaGetLastError();
+}
+
+// The chain kernel's shared memory (kernel (a)'s, per dtype) and the
+// co-resident blocks per SM it gets; 0 blocks is an error.
+template <int M, typename T>
+size_t chain_smem() {
+  return std::is_same<T, bf16>::value
+             ? (size_t)(M + 2) * (M + 2) * kMmaTiles * kMmaRow * sizeof(bf16)
+             : (size_t)(M + 2) * (M + 2) * kC * kF32Row * sizeof(float);
+}
+
+template <int M, typename T, typename U>
+cudaError_t chain_occupancy(int* blocks_per_sm) {
+  const size_t smem = chain_smem<M, T>();
+  static bool done = false;
+  cudaError_t e = allow_smem(wino_chain_kernel<M, T, U>, smem, done);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, wino_chain_kernel<M, T, U>, kThreads, smem);
+  if (e == cudaSuccess && *blocks_per_sm < 1) e = cudaErrorCooperativeLaunchTooLarge;
+  return e;
+}
+
+template <int M, typename T, typename U>
+int launch_chain(const void* x, const void* u, const float* bias, void* buf, void* y,
+                 int nchain, int nimg, int h, int w, int relu, int device,
+                 cudaStream_t stream) {
+  int per_sm = 0, nsm = 0, coop = 0;
+  cudaError_t e = chain_occupancy<M, T, U>(&per_sm);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int TB = std::is_same<T, bf16>::value ? kMmaTiles : kF32Tiles;
+  const int nblk = (nimg * (h / M) * (w / M) + TB - 1) / TB;
+  const int grid = std::max(1, std::min(nblk, per_sm * nsm));
+  // U per conv: n*n*64*64 elements, in units of U (uint2 = 4 bf16 values)
+  const size_t ustride = (size_t)(M + 2) * (M + 2) * kC * kC * sizeof(T) / sizeof(U);
+  const T* xp = static_cast<const T*>(x);
+  const U* up = static_cast<const U*>(u);
+  T* bp = static_cast<T*>(buf);
+  T* yp = static_cast<T*>(y);
+  void* args[] = {(void*)&xp, (void*)&up, (void*)&ustride, (void*)&bias, (void*)&bp,
+                  (void*)&yp, (void*)&nchain, (void*)&nimg, (void*)&h, (void*)&w,
+                  (void*)&relu};
+  e = cudaLaunchCooperativeKernel((const void*)wino_chain_kernel<M, T, U>, dim3(grid),
+                                  dim3(kThreads), args, chain_smem<M, T>(), stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -360,18 +493,42 @@ const char* sres_error_string(int err) {
 // for float as it is; for bf16 in mma fragment order, element
 // U[t][16*ks + 8*hh + 2*q + e][8*nb + g] at [t][nb][ks][g][q][hh][e]
 // (g, q: the lane's group and index in group; hh, e: register and half).
+// With res: y = res + res_scale * conv (the scaled residual epilogue).
 int sres_wino_conv(const void* x, const void* u, const float* bias,
                    const void* res, void* y, int nimg, int h, int w, int m,
-                   int bf16_, int relu, int device, void* stream) {
+                   int bf16_, int relu, float res_scale, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if ((m != 2 && m != 4) || h % m || w % m) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_)
-    return m == 4 ? launch_conv_bf16<4>(x, u, bias, res, y, nimg, h, w, relu, s)
-                  : launch_conv_bf16<2>(x, u, bias, res, y, nimg, h, w, relu, s);
-  return m == 4 ? launch_conv_f32<4>(x, u, bias, res, y, nimg, h, w, relu, s)
-                : launch_conv_f32<2>(x, u, bias, res, y, nimg, h, w, relu, s);
+    return m == 4 ? launch_conv_bf16<4>(x, u, bias, res, y, nimg, h, w, relu, res_scale, s)
+                  : launch_conv_bf16<2>(x, u, bias, res, y, nimg, h, w, relu, res_scale, s);
+  return m == 4 ? launch_conv_f32<4>(x, u, bias, res, y, nimg, h, w, relu, res_scale, s)
+                : launch_conv_f32<2>(x, u, bias, res, y, nimg, h, w, relu, res_scale, s);
+}
+
+// nchain convs (+ bias, + ReLU when relu) in one cooperative launch:
+// x, buf, y (nimg, h, w, 64) NHWC of float or bf16, buf scratch (unused
+// when nchain is 1); u: nchain U operands back to back, each as
+// sres_wino_conv takes it; bias (nchain, 64) f32. x is not written.
+int sres_wino_chain(const void* x, const void* u, const float* bias, void* buf,
+                    void* y, int nchain, int nimg, int h, int w, int m, int bf16_,
+                    int relu, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if ((m != 2 && m != 4) || h % m || w % m || nchain < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_)
+    return m == 4 ? launch_chain<4, bf16, uint2>(x, u, bias, buf, y, nchain, nimg, h, w,
+                                                 relu, device, s)
+                  : launch_chain<2, bf16, uint2>(x, u, bias, buf, y, nchain, nimg, h, w,
+                                                 relu, device, s);
+  return m == 4 ? launch_chain<4, float, float>(x, u, bias, buf, y, nchain, nimg, h, w,
+                                                relu, device, s)
+                : launch_chain<2, float, float>(x, u, bias, buf, y, nchain, nimg, h, w,
+                                                relu, device, s);
 }
 
 // q, r, out: (nimg, hw, 64) NHWC; w1: (hidden, 64), b1: (hidden,),

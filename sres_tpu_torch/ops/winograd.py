@@ -109,14 +109,15 @@ def at_t_apply(m: int, f: List[torch.Tensor]) -> List[torch.Tensor]:
 
 
 def transform_weights(w: torch.Tensor, m: int) -> torch.Tensor:
-    """(Cout, Cin, 3, 3) → (n², Cin, Cout) f32: U[ti·n+tj] = (G w Gᵀ)[ti, tj],
-    evaluated in float64 (correctly rounded to f32 up to ties)."""
+    """(..., Cout, Cin, 3, 3) → (..., n², Cin, Cout) f32: U[ti·n+tj] =
+    (G w Gᵀ)[ti, tj], evaluated in float64 (correctly rounded to f32 up to
+    ties); leading dimensions are a batch of kernels."""
     if m not in MATS:
         raise ValueError(f"Winograd tile m must be one of {sorted(MATS)}, got {m}")
     n = m + 2
     g = torch.from_numpy(MATS[m][1]).to(w.device)
-    u = torch.einsum("tp,sq,oipq->tsio", g, g, w.double())
-    return u.reshape(n * n, w.shape[1], w.shape[0]).float()
+    u = torch.einsum("tp,sq,...oipq->...tsio", g, g, w.double())
+    return u.reshape(*w.shape[:-4], n * n, w.shape[-3], w.shape[-4]).float()
 
 
 def untransform_weight_grad(du: torch.Tensor, m: int) -> torch.Tensor:

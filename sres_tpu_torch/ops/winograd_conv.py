@@ -1,12 +1,13 @@
-"""Winograd conv and RCAB-group entry points: CUDA kernels, plain twins and
-their autograd Functions.
+"""Winograd conv, conv-chain and residual-group entry points: CUDA kernels,
+plain twins and their autograd Functions.
 
 Counterparts of sres_tpu/ops/pallas/winograd_conv.py (``wino_conv_quad``
-:661-696 with its VJP, ``wino_group_fwd`` :569-612, the backward kernel
-``_bwd_kernel`` :212) and of sres_tpu/ops/pallas/wino_group_grad.py
-(``wino_group_trail`` and its VJP :583-649: the stash, the trailing conv's
-adjoint, the reversed RCAB backward of ``_bwd_chunk_kernel`` :324 and
-``_conv_adj`` :258).
+:661-696 with its VJP, ``wino_chain_fwd`` :414, ``wino_group_fwd``
+:569-612 gated and ungated, the backward kernel ``_bwd_kernel`` :212) and
+of sres_tpu/ops/pallas/wino_group_grad.py (``wino_group_trail`` and its
+VJP :583-649, ``wino_resgroup_trail`` and its VJP :719-770: the stash, the
+trailing conv's adjoint, the reversed block backward of
+``_bwd_chunk_kernel`` :324 and ``_conv_adj`` :258).
 
 Dispatch is by the device of the input tensor: a CPU tensor goes to the
 ``*_plain`` twin, a CUDA tensor to the hand-written kernel in
@@ -46,7 +47,7 @@ from sres_tpu_torch.ops.winograd import (at_apply, at_t_apply, bt_apply,
                                          untransform_weight_grad)
 
 LAUNCHES: Dict[str, int] = {"wino_conv": 0, "ca_skip": 0, "wino_conv_bwd": 0,
-                            "ca_skip_bwd": 0}
+                            "ca_skip_bwd": 0, "wino_chain": 0}
 
 # channel-attention launch geometry: spatial chunks of the pooling pass and
 # of the gate+skip pass, per sample
@@ -106,7 +107,8 @@ def _input_transform(x: torch.Tensor, m: int) -> torch.Tensor:
 
 def wino_conv_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                     m: int, relu: bool = False,
-                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    residual: Optional[torch.Tensor] = None,
+                    res_scale: float = 1.0) -> torch.Tensor:
     """Plain-torch twin of the Winograd conv kernel: NCHW in, NCHW out, in
     x.dtype, with the kernel's rounding points."""
     t, c, h, wd = x.shape
@@ -126,6 +128,8 @@ def wino_conv_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     y = rnd(y).reshape(m, m, t, th, tw, cout).permute(2, 5, 3, 0, 4, 1)
     y = y.reshape(t, cout, h, wd)
     if residual is not None:
+        if res_scale != 1.0:                   # the product, then the sum
+            y = y * np.float32(res_scale)
         y = residual.float() + y
     return y.to(xdt)
 
@@ -236,7 +240,7 @@ def _kernel_u(w: torch.Tensor, m: int, x: torch.Tensor, c: int,
     return mma_fragment_order(u) if x.dtype == torch.bfloat16 else u.contiguous()
 
 
-def _wino_conv_cuda(x, w, b, m, relu, residual):
+def _wino_conv_cuda(x, w, b, m, relu, residual, res_scale):
     from sres_tpu_torch.ops import cuda
     lib = cuda.load()
     c = lib.sres_channels()
@@ -254,10 +258,35 @@ def _wino_conv_cuda(x, w, b, m, relu, residual):
     err = lib.sres_wino_conv(
         x.data_ptr(), u.data_ptr(), bias.data_ptr(),
         residual.data_ptr() if residual is not None else None, y.data_ptr(),
-        t, h, wd, m, int(x.dtype == torch.bfloat16), int(relu),
+        t, h, wd, m, int(x.dtype == torch.bfloat16), int(relu), float(res_scale),
         x.device.index or 0, _stream(x.device))
     cuda.check(err, "wino_conv kernel")
     LAUNCHES["wino_conv"] += 1
+    return y
+
+
+def _wino_chain_cuda(x, ws, bvec, m, relu):
+    from sres_tpu_torch.ops import cuda
+    lib = cuda.load()
+    c = lib.sres_channels()
+    _check_act(x, "x", c)
+    t, _, h, wd = x.shape
+    check_geometry(m, h, wd)
+    k = ws.shape[0]
+    if k < 1 or tuple(bvec.shape) != (k, c) or bvec.device != x.device:
+        raise ValueError(f"bvec must be ({k}, {c}) on {x.device} for {k} convs, "
+                         f"got {tuple(bvec.shape)} on {bvec.device}")
+    u = torch.stack([_kernel_u(ws[i], m, x, c) for i in range(k)])
+    bias = bvec.float().contiguous()
+    x = _channels_last(x)
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    buf = torch.empty_like(y) if k > 1 else y          # unused for one conv
+    err = lib.sres_wino_chain(
+        x.data_ptr(), u.data_ptr(), bias.data_ptr(), buf.data_ptr(), y.data_ptr(),
+        k, t, h, wd, m, int(x.dtype == torch.bfloat16), int(relu),
+        x.device.index or 0, _stream(x.device))
+    cuda.check(err, "wino_chain kernel")
+    LAUNCHES["wino_chain"] += 1
     return y
 
 
@@ -380,12 +409,36 @@ def _ca_skip_bwd_cuda(da, c2, caw1, cab1, caw2, cab2):
 # ----------------------------------------------------------------- entries
 def wino_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
               m: int, relu: bool = False,
-              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+              residual: Optional[torch.Tensor] = None,
+              res_scale: float = 1.0) -> torch.Tensor:
     """3×3 SAME conv by Winograd F(m, 3) (+ bias, optional ReLU, optional
-    ``residual + y`` epilogue). CUDA tensor → kernel; CPU tensor → twin."""
+    ``residual + res_scale·y`` epilogue: the product rounded to f32, then
+    the sum, rounded once to x.dtype). CUDA tensor → kernel; CPU tensor →
+    twin."""
     if x.device.type == "cpu":
-        return wino_conv_plain(x, w, b, m, relu, residual)
-    return _wino_conv_cuda(x, w, b, m, relu, residual)
+        return wino_conv_plain(x, w, b, m, relu, residual, res_scale)
+    return _wino_conv_cuda(x, w, b, m, relu, residual, res_scale)
+
+
+def wino_chain_fwd_plain(x: torch.Tensor, ws: torch.Tensor, bvec: torch.Tensor,
+                         m: int, relu: bool = True) -> torch.Tensor:
+    """Plain-torch twin of the chain kernel: K calls of ``wino_conv_plain``,
+    each output rounded to x.dtype."""
+    for i in range(ws.shape[0]):
+        x = wino_conv_plain(x, ws[i], bvec[i], m, relu)
+    return x
+
+
+def wino_chain_fwd(x: torch.Tensor, ws: torch.Tensor, bvec: torch.Tensor,
+                   m: int, relu: bool = True) -> torch.Tensor:
+    """K chained 3×3 SAME Winograd convs (+ bias, + ReLU) in one launch, the
+    counterpart of the JAX probe ``wino_chain_fwd`` (forward only; no model
+    calls it). ws: (K, Cout, Cin, 3, 3) or (K, n², Cin, Cout); bvec (K, C).
+    CUDA tensor → one cooperative launch of the chain kernel (which equals
+    K ``wino_conv`` launches bit for bit); CPU tensor → twin."""
+    if x.device.type == "cpu":
+        return wino_chain_fwd_plain(x, ws, bvec, m, relu)
+    return _wino_chain_cuda(x, ws, bvec, m, relu)
 
 
 def ca_skip(q: torch.Tensor, r: torch.Tensor, caw1: torch.Tensor,
@@ -519,6 +572,89 @@ def wino_group_bwd_plain(dy, stash, ws, bvec, caw1, cab1, caw2, cab2, m, wt,
                       conv, wino_conv_bwd_plain, ca_skip_bwd_plain)
 
 
+def _resgroup(x, ws, bvec, m, wt, bt, res_scale, conv: Callable,
+              stash: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    q = x
+    for i in range(ws.shape[0]):
+        if stash is not None:
+            stash.append(q)                    # ResBlock input a_i
+        r = conv(q, ws[i, 0], bvec[i, 0], m, relu=True)
+        q = conv(r, ws[i, 1], bvec[i, 1], m, residual=q, res_scale=res_scale)
+    if stash is not None:
+        stash.append(q)                        # chain output z
+    return conv(q, wt, bt, m, residual=x)
+
+
+def wino_resgroup_fwd(x: torch.Tensor, ws: torch.Tensor, bvec: torch.Tensor,
+                      m: int, wt: torch.Tensor, bt: torch.Tensor,
+                      res_scale: float = 1.0,
+                      stash: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """A stack of plain ResBlocks with the trailing conv and the skip (the
+    ungated group, JAX ``wino_resgroup_trail``, wino_group_grad.py:719; the
+    EDSR trunk): per block conv+ReLU, then conv with the scaled residual
+    epilogue ``q + res_scale·c2`` (winograd_conv.py:545); then the
+    trailing conv with ``x + conv(q)``. With a ``stash`` list each block
+    input and the chain output are appended to it as the chain runs.
+
+    ws: (nb, 2, Cout, Cin, 3, 3) or (nb, 2, n², Cin, Cout); bvec (nb, 2, C);
+    wt (Cout, Cin, 3, 3) or (n², Cin, Cout); bt (C,)."""
+    return _resgroup(x, ws, bvec, m, wt, bt, res_scale, wino_conv, stash)
+
+
+def wino_resgroup_fwd_plain(x, ws, bvec, m, wt, bt, res_scale=1.0,
+                            stash=None) -> torch.Tensor:
+    """Plain-torch twin of ``wino_resgroup_fwd`` on any device."""
+    return _resgroup(x, ws, bvec, m, wt, bt, res_scale, wino_conv_plain, stash)
+
+
+def _resgroup_bwd(dy, stash, ws, bvec, m, wt, res_scale,
+                  conv: Callable, conv_bwd: Callable):
+    nb, xdt = ws.shape[0], stash[0].dtype
+    dz, dut, dbt = conv_bwd(dy.to(xdt), stash[nb], wt, m)
+    da = dz.float()                            # fresh: accumulated in place
+    # conv2's cotangent da·res_scale through the conv adjoint's channel-
+    # attention prologue (g·gate + ds) with a constant gate and ds = 0,
+    # which is exact; at res_scale 1 da goes in as it is
+    scale = {}
+    if res_scale != 1.0:
+        t, c = da.shape[:2]
+        scale = dict(gate=torch.full((t, c), res_scale, device=da.device),
+                     ds=torch.zeros((t, c), device=da.device))
+    dus, dbs = [], []
+    for k in reversed(range(nb)):
+        a = stash[k]
+        # recompute c1 only: the ungated backward never reads c2 (JAX
+        # recomputes it, wino_group_grad.py:364-366)
+        c1 = conv(a, ws[k, 0], bvec[k, 0], m, relu=True)
+        dc, du2, db2 = conv_bwd(da, c1, ws[k, 1], m, **scale)
+        # da (the skip's cotangent) += conv1's adjoint, ReLU-gated by c1
+        _, du1, db1 = conv_bwd(dc, a, ws[k, 0], m, y=c1, dprev=da)
+        dus.append(torch.stack([du1, du2]))
+        dbs.append(torch.stack([db1, db2]))
+    dx = (da + dy.float()).to(xdt)             # the skip, in f32
+    return dx, torch.stack(dus[::-1]), torch.stack(dbs[::-1]), dut, dbt
+
+
+def wino_resgroup_bwd(dy, stash, ws, bvec, m, wt, res_scale=1.0):
+    """Backward of ``wino_resgroup_fwd`` from the stash it wrote: the
+    trailing conv's adjoint, then blocks nb-1 … 0 (recompute c1; conv2's
+    adjoint on da·res_scale into an f32 dc; conv1's adjoint gated by c1 > 0,
+    accumulated into the f32 skip cotangent da), then dx = da + dy.
+    Returns (dx, dU (nb, 2, n², Cin, Cout), db (nb, 2, C), dUt, dbt), the
+    gradients f32 and dx in the activation dtype."""
+    return _resgroup_bwd(dy, stash, ws, bvec, m, wt, res_scale, wino_conv,
+                         wino_conv_bwd)
+
+
+def wino_resgroup_bwd_plain(dy, stash, ws, bvec, m, wt, res_scale=1.0,
+                            conv: Callable = wino_conv_plain):
+    """Plain-torch twin of ``wino_resgroup_bwd`` on any device; ``conv``
+    recomputes c1 (``wino_conv`` gives it the kernel path's values, as in
+    ``wino_group_bwd_plain``)."""
+    return _resgroup_bwd(dy, stash, ws, bvec, m, wt, res_scale, conv,
+                         wino_conv_bwd_plain)
+
+
 # ------------------------------------------------------- autograd Functions
 class WinoConvFn(torch.autograd.Function):
     """y = conv(x, weight) + bias [+ residual] through ``wino_conv``, with
@@ -586,3 +722,41 @@ class WinoGroupTrailFn(torch.autograd.Function):
         grads = [None if meta is None else gr.reshape(meta[0]).to(meta[1])
                  for gr, meta in zip(flat, ctx.metas)]
         return (dx, None, None, None, *grads)
+
+
+class WinoResGroupTrailFn(torch.autograd.Function):
+    """The ungated group with its trailing conv and skip (the JAX
+    ``wino_resgroup_trail`` and its VJP, wino_group_grad.py:719-770): the
+    forward is ``wino_resgroup_fwd`` writing the stash, the backward
+    ``wino_resgroup_bwd``.
+
+    ``ops`` = (ws, bvec, wt, bt) as ``wino_resgroup_fwd`` takes them;
+    ``params`` are the parameters in module order, per ResBlock (conv1 w,
+    b, conv2 w, b), then the trailing conv's w, b, with None for an absent
+    bias. Each gets its gradient in its own dtype and shape."""
+
+    @staticmethod
+    def forward(ctx, x, ops, m, res_scale, plain, *params):
+        stash: List[torch.Tensor] = []
+        fwd = wino_resgroup_fwd_plain if plain else wino_resgroup_fwd
+        ws, bvec, wt, bt = ops
+        y = fwd(x, ws, bvec, m, wt, bt, res_scale, stash)
+        ctx.save_for_backward(*stash)
+        ctx.ops, ctx.m, ctx.res_scale, ctx.plain = ops, m, res_scale, plain
+        ctx.metas = [None if p is None else (p.shape, p.dtype) for p in params]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        ws, bvec, wt, _ = ctx.ops
+        bwd = wino_resgroup_bwd_plain if ctx.plain else wino_resgroup_bwd
+        dx, du, db, dut, dbt = bwd(dy, list(ctx.saved_tensors), ws, bvec, ctx.m,
+                                   wt, ctx.res_scale)
+        dws = untransform_weight_grad(du, ctx.m)          # (nb, 2, Co, Ci, 3, 3)
+        flat = []
+        for k in range(ws.shape[0]):
+            flat += [dws[k, 0], db[k, 0], dws[k, 1], db[k, 1]]
+        flat += [untransform_weight_grad(dut, ctx.m), dbt]
+        grads = [None if meta is None else gr.reshape(meta[0]).to(meta[1])
+                 for gr, meta in zip(flat, ctx.metas)]
+        return (dx, None, None, None, None, *grads)

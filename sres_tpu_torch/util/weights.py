@@ -2,9 +2,9 @@
 a torch state dict in the reference's naming, which the port's modules
 load with ``strict=True``.
 
-The port keeps its own copy of the RCAN part of the JAX package's exporter
-(sres_tpu/util/torch_export.py:27-127 and the ``rcan`` branch of
-``export_variables`` :380-391), and a numpy copy of
+The port keeps its own copy of the RCAN and EDSR parts of the JAX package's
+exporter (sres_tpu/util/torch_export.py:27-143 and the ``rcan`` and
+``edsr`` branches of ``export_variables`` :380-391), and a numpy copy of
 ``sres_tpu.models.fused.rcan_params_from_fused`` (:129-147), so that a JAX
 ``model.fused`` tree (``FusedResidualGroup_{g}`` stacks) exports to the same
 names as an unfused one; it imports nothing of the JAX package; SwinIR's (``export_swinir``), which the JAX package lacks, maps
@@ -96,6 +96,21 @@ def export_rcan(params: Dict[str, Any], nlayers: int, nblocks: int,
     return tw
 
 
+def export_edsr(params: Dict[str, Any], nlayers: int,
+                scale: int = 4) -> TorchState:
+    """flax EDSR params → reference edsr/network.py state dict."""
+    tw: TorchState = {}
+    _conv_out(tw, "head.0", params["Conv_0"])
+    for i in range(nlayers):
+        rb = params[f"ResBlock_{i}"]
+        _conv_out(tw, f"body.{i}.body.0", rb["Conv_0"])
+        _conv_out(tw, f"body.{i}.body.2", rb["Conv_1"])
+    _conv_out(tw, f"body.{nlayers}", params["Conv_1"])
+    _export_upsampler(tw, params["SPUpsample_0"], scale)
+    _conv_out(tw, "tail.1", params["Conv_2"])
+    return tw
+
+
 def _dense_out(tw: TorchState, name: str, node: Dict[str, Any]) -> None:
     tw[f"{name}.weight"] = np.asarray(node["kernel"]).T
     tw[f"{name}.bias"] = np.asarray(node["bias"])
@@ -142,17 +157,19 @@ def export_swinir(params: Dict[str, Any], nlayers: int, nblocks: int,
 def export_variables(name: str, variables: Dict[str, Any],
                      model_cfg: Mapping) -> TorchState:
     """flax variables ({'params': .., ['batch_stats': ..]}) → reference torch
-    state dict. ``rcan`` and ``swinir`` are ported."""
+    state dict. ``rcan``, ``swinir`` and ``edsr`` are ported."""
     scale = int(np.prod(list(model_cfg.get("downscale_factors", [2, 2]))))
     if name == "rcan":
         return export_rcan(variables["params"], model_cfg["nlayers"],
                            model_cfg["nblocks"], scale)
+    if name == "edsr":
+        return export_edsr(variables["params"], model_cfg["nlayers"], scale)
     if name == "swinir":   # nblocks defaults as in sres_tpu/models/swinir.py:207
         return export_swinir(variables["params"], model_cfg["nlayers"],
                              model_cfg.get("nblocks", 2), scale)
     raise NotImplementedError(
         f"weight export for '{name}' is not ported yet (ROADMAP Queue 1 "
-        "item 8); available: ['rcan', 'swinir']")
+        "item 8); available: ['edsr', 'rcan', 'swinir']")
 
 
 def state_dict_from_jax(variables_np: Dict[str, Any],

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (forward and backward: the Winograd conv and
-channel attention, the window attention, the direct-conv group kernels of
-``model.fused``) against their plain twins, on the card.
+"""The port's CUDA kernels (forward and backward: the Winograd conv with its
+scaled residual epilogue, the conv chain, channel attention, the ungated
+group of EDSR's trunk, the window attention, the direct-conv group kernels
+of ``model.fused``) against their plain twins, on the card.
 
 Imports no JAX, so it runs on a machine that has only torch and a card;
 tests/conftest.py imports JAX, so skip it there:
@@ -356,3 +357,107 @@ def test_fused_group_gradients_match_twin(dev):
     torch.cuda.synchronize()
     for a, b in zip(res[False], res[True]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("res_scale", [1.0, 0.1])
+def test_wino_conv_scaled_residual_matches_twin(dev, m, res_scale):
+    """The epilogue res + res_scale·conv (EDSR's ResBlock skip); at 1.0 the
+    same bits as the unscaled epilogue."""
+    rng = np.random.default_rng(60 + m)
+    x, r = _t(rng, (5, 64, 16, 24), dev), _t(rng, (5, 64, 16, 24), dev)
+    w, b = _t(rng, (64, 64, 3, 3), dev, 0.04), _t(rng, (64,), dev, 0.04)
+    _check(lambda x_, r_: twc.wino_conv(x_, w, b, m, False, r_, res_scale),
+           lambda x_, r_: twc.wino_conv_plain(x_, w, b, m, False, r_, res_scale),
+           (x, r), (x.bfloat16(), r.bfloat16()))
+    if res_scale == 1.0:
+        for dt in (torch.float32, torch.bfloat16):
+            xx, rr = x.to(dt), r.to(dt)
+            assert torch.equal(twc.wino_conv(xx, w, b, m, residual=rr, res_scale=1.0),
+                               twc.wino_conv(xx, w, b, m, residual=rr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_wino_chain_matches_twin_and_separate_launches(dev, m):
+    """The chain (K = 3, + ReLU) in one launch against its twin (f32 bound,
+    bf16 envelope) and bit for bit against K ``wino_conv`` launches."""
+    rng = np.random.default_rng(70 + m)
+    x = _t(rng, (5, 64, 16, 24), dev)
+    ws, bv = _t(rng, (3, 64, 64, 3, 3), dev, 0.04), _t(rng, (3, 64), dev, 0.04)
+    launches = dict(twc.LAUNCHES)
+    _check(lambda x_: twc.wino_chain_fwd(x_, ws, bv, m),
+           lambda x_: twc.wino_chain_fwd_plain(x_, ws, bv, m), (x,), (x.bfloat16(),))
+    assert twc.LAUNCHES["wino_chain"] == launches["wino_chain"] + 2
+    for dt in (torch.float32, torch.bfloat16):
+        y = x.to(dt)
+        for i in range(3):
+            y = twc.wino_conv(y, ws[i], bv[i], m, relu=True)
+        assert torch.equal(twc.wino_chain_fwd(x.to(dt), ws, bv, m), y)
+    assert twc.LAUNCHES["wino_conv"] == launches["wino_conv"] + 6
+    one = twc.wino_chain_fwd(x, ws[:1], bv[:1], m, relu=False)
+    assert torch.equal(one, twc.wino_conv(x, ws[0], bv[0], m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res_scale", [1.0, 0.7])
+def test_resgroup_fwd_bwd_match_twins(dev, res_scale):
+    """The ungated group (3 ResBlocks + trailing conv, m=4): the forward and
+    its stash against the twins (f32 1e-4·max, bf16 envelope); the backward
+    kernels against the twin on one shared stash, recomputing c1 with the
+    same conv kernel (1e-4·max in f32; a ReLU gate within rounding of zero
+    would otherwise open on one side only)."""
+    from sres_tpu_torch.models.layers import init_torch_default
+    from sres_tpu_torch.models.wino_blocks import WinoResTrunk
+    trunk = init_torch_default(WinoResTrunk(64, 3, 4, res_scale), 7).to(dev)
+    rng = np.random.default_rng(80)
+    x, gy = _t(rng, (3, 64, 16, 24), dev), _t(rng, (3, 64, 16, 24), dev)
+    outs = {}
+    for plain in (False, True):
+        fwd = twc.wino_resgroup_fwd_plain if plain else twc.wino_resgroup_fwd
+        for dt in (torch.float32, torch.bfloat16):
+            ws, bv, wt, bt = trunk._operands(dt)
+            st = []
+            y = fwd(x.to(dt), ws, bv, 4, wt, bt, res_scale, st)
+            outs[(plain, dt)] = torch.cat([a.float().flatten() for a in [y, *st]])
+    torch.cuda.synchronize()
+    f32, bf16 = torch.float32, torch.bfloat16
+    a, b = outs[(False, f32)], outs[(True, f32)]
+    assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert _rel(outs[(False, bf16)], b) <= 2 * _rel(outs[(True, bf16)], b) + 1e-4
+    ws, bv, wt, bt = trunk._operands(f32)
+    st = []
+    twc.wino_resgroup_fwd(x, ws, bv, 4, wt, bt, res_scale, st)
+    launches = twc.LAUNCHES["wino_conv_bwd"]
+    rk = twc.wino_resgroup_bwd(gy, st, ws, bv, 4, wt, res_scale)
+    rp = twc.wino_resgroup_bwd_plain(gy, st, ws, bv, 4, wt, res_scale, conv=twc.wino_conv)
+    torch.cuda.synchronize()
+    assert twc.LAUNCHES["wino_conv_bwd"] == launches + 2 * 3 + 1
+    for a, b in zip(rk, rp):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_resgroup_fn_gradients_match_twin(dev):
+    """WinoResGroupTrailFn (EDSR's trunk: 2 ResBlocks + trailing conv,
+    res_scale 0.5, f32) under autograd: the output, dx and every parameter's
+    gradient through the kernels against the plain twins (1e-4·max)."""
+    from sres_tpu_torch.models.layers import init_torch_default
+    from sres_tpu_torch.models.wino_blocks import WinoResTrunk
+    trunk = init_torch_default(WinoResTrunk(64, 2, 4, 0.5), 8).to(dev)
+    rng = np.random.default_rng(81)
+    x = _t(rng, (3, 64, 16, 16), dev).contiguous(memory_format=torch.channels_last)
+    gy = _t(rng, (3, 64, 16, 16), dev)
+    res = {}
+    for plain in (False, True):
+        trunk.plain = plain
+        xx = x.clone().requires_grad_()
+        y = trunk(xx)
+        res[plain] = (y.detach(), *torch.autograd.grad((y * gy).sum(),
+                                                        [xx, *trunk.parameters()]))
+    trunk.plain = False
+    torch.cuda.synchronize()
+    for a, b in zip(res[False], res[True]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+

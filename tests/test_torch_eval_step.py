@@ -104,12 +104,27 @@ def test_chip_smoke_config_is_the_flagship_yaml():
     assert got == want
 
 
+def test_chip_smoke_edsr_config_is_the_yaml():
+    """Phases 19-21 run config/model/edsr.yaml as written, with the
+    Winograd trunk set in code (the YAML keeps it commented out)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    want = yaml.safe_load((ROOT / "config/model/edsr.yaml").read_text())
+    got = dict(chip_smoke.EDSR_CFG)
+    assert got.pop("winograd") == 4
+    assert got == want
+
+
 _FRESH_PROCESS = """
 import contextlib, io, json, sys
 sys.path.insert(0, %r)
 sys.argv = ["chip_smoke.py"]
 import chip_smoke, sres_tpu_torch.device, sres_tpu_torch.models
 import sres_tpu_torch.models.rcan, sres_tpu_torch.models.swinir
+import sres_tpu_torch.models.edsr, sres_tpu_torch.models.wino_blocks
 import sres_tpu_torch.models.fused, sres_tpu_torch.ops.fused_group
 import sres_tpu_torch.ops.cuda, sres_tpu_torch.ops.window_attention
 import sres_tpu_torch.ops.resize, sres_tpu_torch.ops.winograd_conv
@@ -141,13 +156,25 @@ swin_sd = state_dict_from_jax({"params": swin}, scfg)
 swin_model = build_model(scfg, 1, 1, "f32", device="cpu")
 swin_model.load_state_dict(swin_sd, strict=True)
 swin_out = tuple(swin_model(torch.zeros(1, 1, 8, 8)).shape)
+ecfg = dict(name="edsr", nfeatures=4, nlayers=1, winograd=2)
+edsr_sd = state_dict_from_jax({"params": {
+    "Conv_0": conv(3, 1, 4), "ResBlock_0": {"Conv_0": conv(3, 4, 4), "Conv_1": conv(3, 4, 4)},
+    "Conv_1": conv(3, 4, 4), "SPUpsample_0": params["SPUpsample_0"],
+    "Conv_2": conv(3, 4, 1)}}, ecfg)
+edsr_model = build_model(ecfg, 1, 1, "f32", device="cpu")
+edsr_model.load_state_dict(edsr_sd, strict=True)
+from sres_tpu_torch.ops.winograd_conv import wino_chain_fwd
+chain_out = tuple(wino_chain_fwd(torch.zeros(1, 4, 4, 4), torch.zeros(2, 4, 4, 3, 3),
+                                 torch.zeros(2, 4), 2).shape)
+edsr_out = tuple(edsr_model(torch.zeros(1, 1, 8, 8)).shape)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "yaml", "sres_tpu"))
 out = io.StringIO()
 with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     rc = chip_smoke.main()
 print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
-                      swin_keys=len(swin_sd), swin_out=swin_out)))
+                      swin_keys=len(swin_sd), swin_out=swin_out,
+                      edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out)))
 """
 
 
@@ -164,11 +191,15 @@ def fresh_process():
 def test_port_imports_no_jax_and_no_yaml(fresh_process):
     """Nothing of JAX, YAML or the JAX package is loaded, even after calls
     of state_dict_from_jax (20 tensors for a 1-group, 1-RCAB RCAN; 25 for a
-    1-group, 1-block SwinIR, which then loads strictly and runs)."""
+    1-group, 1-block SwinIR and 14 for a 1-ResBlock EDSR with ``winograd:
+    2``, which then load strictly and run) and of the conv chain."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
     assert fresh_process["swin_keys"] == 25
     assert fresh_process["swin_out"] == [1, 1, 32, 32]
+    assert fresh_process["edsr_keys"] == 14
+    assert fresh_process["edsr_out"] == [1, 1, 32, 32]
+    assert fresh_process["chain_out"] == [1, 4, 4, 4]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):

@@ -69,7 +69,7 @@ def test_weight_export_copy_matches_jax_exporter(jax_rcan):
     for k, v in want.items():
         assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        weights.export_variables("edsr", variables, CFG)
+        weights.export_variables("vdsr", variables, CFG)
 
 
 def test_winograd_state_dict_names_match_direct():
@@ -106,7 +106,7 @@ def test_seeded_init_is_reproducible_and_torch_default():
 
 def test_unported_knobs_raise_and_tpu_knobs_are_ignored():
     for extra in (dict(quantization="int8_fused"),
-                  dict(pervar_heads=True), dict(name="edsr")):
+                  dict(pervar_heads=True), dict(name="vdsr")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dict(CFG, **extra), 1, 1, "f32", device="cpu")
     ref = build_model(CFG, 1, 1, "f32", device="cpu").state_dict()

@@ -1,6 +1,6 @@
 """The port's train step, optimizer and lr schedule against the JAX package
 (build_train_step + optax.adam, lr_at_epoch, set_learning_rate), on tiny
-RCANs from numpy seeds. On the CPU the Winograd trunk trains through the
+RCANs and EDSRs from numpy seeds. On the CPU the Winograd trunk trains through the
 plain twins of its kernels, inside the same autograd Functions as on the
 card.
 """
@@ -21,6 +21,9 @@ from sres_tpu_torch.util.weights import state_dict_from_jax
 
 CFG = dict(name="rcan", nfeatures=8, nlayers=1, nblocks=2, cbottleneck=2,
            kernel_size=3, downscale_factors=[2, 2], loss_fn="l2")
+CFGS = {"rcan": CFG,
+        "edsr": dict(name="edsr", nfeatures=8, nlayers=2, res_scale=0.8,
+                     kernel_size=3, downscale_factors=[2, 2], loss_fn="l2")}
 TASK = dict(input_variables=["SST"], target_variables=["SST"], lr=1e-3)
 STEPS, SEED = 3, 5
 
@@ -38,15 +41,26 @@ def _batches():
 
 @pytest.fixture(scope="module")
 def jax_run():
-    """Three JAX train steps from the port's seeded init: per-step metrics
-    and the final parameters as a torch state dict."""
-    sd0 = build_model(CFG, 1, 1, "f32", seed=SEED, device="cpu").state_dict()
-    v = import_variables("rcan", {k: t.numpy() for k, t in sd0.items()}, CFG)
-    model = jax_build_model(dict(CFG), 1, 1, precision="f32")
+    """Three JAX train steps from the port's seeded init, per model name
+    (run once each): per-step metrics and the final parameters as a torch
+    state dict."""
+    runs = {}
+
+    def run(name):
+        if name not in runs:
+            runs[name] = _jax_run(CFGS[name])
+        return runs[name]
+    return run
+
+
+def _jax_run(cfg):
+    sd0 = build_model(cfg, 1, 1, "f32", seed=SEED, device="cpu").state_dict()
+    v = import_variables(cfg["name"], {k: t.numpy() for k, t in sd0.items()}, cfg)
+    model = jax_build_model(dict(cfg), 1, 1, precision="f32")
     opt = optax.adam(TASK["lr"])
     state = jstep.SRTrainState(step=jnp.zeros((), jnp.int32), params=v["params"],
                                batch_stats={}, opt_state=opt.init(v["params"]))
-    sc = jstep.make_step_config(_Cfg(TASK), _Cfg(CFG), has_bn=False)
+    sc = jstep.make_step_config(_Cfg(TASK), _Cfg(cfg), has_bn=False)
     step = jstep.build_train_step(model, opt, sc)
     hr, weight = _batches()
     metrics = []
@@ -54,7 +68,7 @@ def jax_run():
         state, met = step(state, jnp.asarray(hr[i]), jnp.asarray(weight))
         metrics.append({k: float(x) for k, x in met.items()})
     final = {"params": jax_to_numpy(state.params)}
-    return sd0, metrics, state_dict_from_jax(final, CFG)
+    return sd0, metrics, state_dict_from_jax(final, cfg)
 
 
 def jax_to_numpy(tree):
@@ -63,19 +77,23 @@ def jax_to_numpy(tree):
     return np.asarray(tree)
 
 
-@pytest.mark.parametrize("winograd", [None, 4])
-def test_train_steps_match_jax(jax_run, winograd):
+@pytest.mark.parametrize("name,winograd", [("rcan", None), ("rcan", 4),
+                                           ("edsr", None), ("edsr", 4)],
+                         ids=["None", "4", "edsr-None", "edsr-4"])
+def test_train_steps_match_jax(jax_run, name, winograd):
     """Three Adam steps (lr 1e-3, a 0-weight padding tile) on the direct
     trunk and on ``winograd: 4`` (the JAX side runs its direct trunk, since
-    its Winograd path needs 128 packed lanes): losses within rtol 1e-5,
-    parameters within the bar of tests/test_train_parity.py (rtol 5e-4,
-    atol 5e-6), with its straggler bound for elements whose Adam update
-    sign Winograd's f32 roundoff flips."""
-    sd0, jmetrics, jfinal = jax_run
-    model = build_model(dict(CFG, winograd=winograd), 1, 1, "f32", device="cpu")
+    its Winograd path needs 128 packed lanes), for RCAN and for EDSR
+    (res_scale 0.8; its Winograd trunk is the ungated group): losses within
+    rtol 1e-5, parameters within the bar of tests/test_train_parity.py
+    (rtol 5e-4, atol 5e-6), with its straggler bound for elements whose
+    Adam update sign Winograd's f32 roundoff flips."""
+    cfg = CFGS[name]
+    sd0, jmetrics, jfinal = jax_run(name)
+    model = build_model(dict(cfg, winograd=winograd), 1, 1, "f32", device="cpu")
     model.load_state_dict(sd0)
     opt = tstep.build_optimizer(model, TASK)
-    step = tstep.build_train_step(model, opt, tstep.make_step_config(TASK, CFG))
+    step = tstep.build_train_step(model, opt, tstep.make_step_config(TASK, cfg))
     hr, weight = _batches()
     for i in range(STEPS):
         met = step(torch.from_numpy(hr[i]), torch.from_numpy(weight))

@@ -123,7 +123,7 @@ def test_cpu_wrappers_take_the_plain_twins():
     q = twc.ca_skip(X, y, *ca)
     assert torch.equal(q, twc.ca_skip_plain(X, y, *ca))
     assert twc.LAUNCHES == dict.fromkeys(
-        ("wino_conv", "ca_skip", "wino_conv_bwd", "ca_skip_bwd"), 0)
+        ("wino_conv", "ca_skip", "wino_conv_bwd", "ca_skip_bwd", "wino_chain"), 0)
 
 
 def test_wino_conv_rejects_bad_geometry():
