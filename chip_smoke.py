@@ -84,7 +84,21 @@ Phases, one line each (every line carries the card's name and power limit):
    gradients against the plain twins, three Adam steps on one batch (the
    loss must fall; 49 ``wino_conv`` and 33 ``wino_conv_bwd`` launches
    each), ms/step, tiles/s, peak memory and idle share against the direct
-   trunk, and a profile.
+   trunk, and a profile;
+22. the tiled window-attention kernels (T a multiple of 16 up to 256; T = 64
+   keeps phases 10-11's) against their twins at SwinIR-w16's serving shape
+   (432 windows of 256 tokens, C 64, 4 heads), unshifted and shifted (the
+   36-window group mask), forward and backward, timed against the
+   composition; and at T = 16 (8 windows) and T = 144 (6 windows, head
+   width 32), checked only;
+23. SwinIR ×4 with 16×16 windows (config/model/swinir.yaml + ``window_size:
+   16``) served as phase 12 serves window 8: three requests of 12 HR tiles,
+   16 tiled forward launches each and none on the T = 64 kernels, held
+   against the plain twins, timed against the composition, profiled;
+24. the same model trained as phase 13: one step's loss and gradients
+   against the plain twins, three Adam steps (16 tiled forward and 16 tiled
+   backward launches each, none on the T = 64 kernels; the loss must
+   fall), ms/step, tiles/s, peak memory, the composition, a profile.
 
 Tolerances: f32 max|kernel − plain| ≤ 3e-5·max|plain| (group 1e-4, and
 1e-2 for a group's gradients when a ReLU gate flipped between the kernel
@@ -103,9 +117,9 @@ kernels ``bound_ms`` is that of the timed mode (the conv as conv1).
 
 The last three lines are a JSON object describing every kernel of the path
 (``launches`` counted over the three steps of each train slice, phases 9,
-13, 17 and 21, EDSR's adding to RCAN's ``wino_conv`` and
+13, 17, 21 and 24, EDSR's adding to RCAN's ``wino_conv`` and
 ``wino_conv_bwd``; ``serve_launches`` over the three requests of phases 5,
-12, 16 and 20; the chain's over the one probe launch of phase 18), the card's
+12, 16, 20 and 23; the chain's over the one probe launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
 """
@@ -147,6 +161,10 @@ SWIN_TRAIN_TASK = dict(TASK_CFG, lr=2e-4)
 SWIN_BATCH, TILE96 = 12, 96
 SWIN_HR = 4 * TILE96
 SWIN_NW = SWIN_BATCH * (TILE96 // SWIN_CFG["window_size"]) ** 2
+# the same model with HAT's 16×16 windows (XPixelGroup/HAT, window_size: 16),
+# set in code: T = 256, 432 windows at batch 12, 36 in a shifted group
+SWIN16_CFG = dict(SWIN_CFG, window_size=16)
+SWIN16_NW = SWIN_BATCH * (TILE96 // SWIN16_CFG["window_size"]) ** 2
 
 F32_TOL, GROUP_F32_TOL = 3e-5, 1e-4
 # one group's f32 gradients where a ReLU gate flipped between the kernel and
@@ -793,21 +811,21 @@ def phase_train(dev, seed):
     return total
 
 
-# ------------------------------------------------- SwinIR (phases 10-13)
-def _wattn_operands(dev, rng):
-    """Window-attention operands at the serving slice's shapes: x (1728, 64,
-    64), the JAX-layout weights (torch-default scale), a 0.02-scale
-    relative-position bias (h, T, T) and the 96×96 tiles' shifted-window
-    group mask (144, T, T)."""
+# ------------------------------------- SwinIR (phases 10-13 and 22-24)
+def _wattn_operands(dev, rng, cfg, nw, tile=(TILE96, TILE96)):
+    """Window-attention operands of ``cfg`` (T = window², C, heads) at ``nw``
+    windows: x (nw, T, C), the JAX-layout weights (torch-default scale), a
+    0.02-scale relative-position bias (h, T, T) and the shifted-window group
+    mask of a ``tile`` = (H, W) image (SwinIR's 96×96 LR tiles: 144 windows
+    of 8×8, 36 of 16×16)."""
     import torch
     from sres_tpu_torch.models.swinir import shift_attn_mask
-    t, c, h = SWIN_CFG["window_size"] ** 2, SWIN_CFG["nfeatures"], SWIN_CFG["num_heads"]
+    ws = cfg["window_size"]
+    t, c, h = ws ** 2, cfg["nfeatures"], cfg["num_heads"]
     u = lambda *s: torch.from_numpy(rng.uniform(-1 / 8, 1 / 8, s).astype(np.float32)).to(dev)
-    x = torch.from_numpy(rng.normal(size=(SWIN_NW, t, c)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.normal(size=(nw, t, c)).astype(np.float32)).to(dev)
     bias = torch.from_numpy(rng.normal(scale=0.02, size=(h, t, t)).astype(np.float32)).to(dev)
-    side = TILE96
-    mask = torch.from_numpy(shift_attn_mask(side, side, SWIN_CFG["window_size"],
-                                            SWIN_CFG["window_size"] // 2)).to(dev)
+    mask = torch.from_numpy(shift_attn_mask(*tile, ws, ws // 2)).to(dev)
     return x, [u(c, 3 * c), u(3 * c), u(c, c), u(c), bias], mask
 
 
@@ -827,18 +845,21 @@ def _composition(x, wqkv, bqkv, wo, bo, bias, mask, heads):
     return F.linear(o.transpose(1, 2).reshape(nw, t, c), wo.to(dt).T, bo.to(dt))
 
 
-def _wattn_flops(nw: int) -> dict:
-    t, c, h = SWIN_CFG["window_size"] ** 2, SWIN_CFG["nfeatures"], SWIN_CFG["num_heads"]
+def _wattn_flops(cfg, nw: int) -> dict:
+    t, c, h = cfg["window_size"] ** 2, cfg["nfeatures"], cfg["num_heads"]
     proj = 2.0 * nw * t * c * c            # one (T, C) @ (C, C) product
     core = 2.0 * nw * h * t * t * (c // h)  # q·kᵀ or p·v over all heads
     return dict(proj=proj, core=core)
 
 
-def phase_wattn(dev, rng):
+def _wattn_fwd_case(dev, rng, cfg, nw, label, tile=(TILE96, TILE96), timed=True):
+    """The forward kernel against its twin at ``cfg``'s T and ``nw``
+    windows, unshifted and shifted, f32 and bf16; with ``timed``, bf16 times
+    against the twin and the composition, and the bound."""
     import torch
     from sres_tpu_torch.ops import window_attention as twa
-    x, ws, mask = _wattn_operands(dev, rng)
-    h, xb = SWIN_CFG["num_heads"], x.bfloat16()
+    x, ws, mask = _wattn_operands(dev, rng, cfg, nw, tile)
+    h, xb = cfg["num_heads"], x.bfloat16()
     worst = 0.0
     for m in (None, mask):
         name = "window_attention " + ("shifted" if m is not None else "unshifted")
@@ -849,34 +870,39 @@ def phase_wattn(dev, rng):
         comp = _composition(x, *ws, m, h)
         torch.cuda.synchronize()
         out["composition_f32_rel"] = rel_err(comp, twa.window_attention_plain(x, *ws, m, h))
-        say("10 kernel window_attention", **out)
+        say(label, t=x.shape[1], nw=nw, **out)
         worst = max(worst, out["bf16_vs_plain_abs"])
+    if not timed:
+        return None
     timing = {}
-    for label, m in (("unshifted", None), ("shifted", mask)):
-        timing[label] = dict(
+    for name, m in (("unshifted", None), ("shifted", mask)):
+        timing[name] = dict(
             ms=time_ms(lambda: twa.window_attention(xb, *ws, m, h)),
             plain_ms=time_ms(lambda: twa.window_attention_plain(xb, *ws, m, h), iters=3),
             library_ms=time_ms(lambda: _composition(xb, *ws, m, h)))
-    fl = _wattn_flops(SWIN_NW)
+    fl = _wattn_flops(cfg, nw)
     flops = 4 * fl["proj"] + 2 * fl["core"]   # qkv (3 C wide), o·wo; q·kᵀ, p·v
     # x read and y written (bf16), the group mask (f32), weights (bf16),
     # biases and the (h, T, T) bias (f32)
     nbytes = 2 * 2 * xb.numel() + 4 * mask.numel() + 2 * (ws[0].numel() + ws[2].numel()) \
         + 4 * (ws[1].numel() + ws[3].numel() + ws[4].numel())
     bound, by = bound_ms(nbytes, flops), bound_by(nbytes, flops)
-    say("10 kernel window_attention timing", nw=SWIN_NW, dtype="bf16", **timing,
+    say(f"{label} timing", t=x.shape[1], nw=nw, dtype="bf16", **timing,
         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
     t = timing["shifted"]
     return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bound,
                 bound_by=by, library_ms=t["library_ms"])
 
 
-def phase_wattn_bwd(dev, rng):
+def _wattn_bwd_case(dev, rng, cfg, nw, label, tile=(TILE96, TILE96), timed=True):
+    """The backward kernel against its twin (dx and the five weight
+    gradients) as ``_wattn_fwd_case``; timed against the composition's
+    autograd backward."""
     import torch
     from sres_tpu_torch.ops import window_attention as twa
-    x, ws, mask = _wattn_operands(dev, rng)
+    x, ws, mask = _wattn_operands(dev, rng, cfg, nw, tile)
     g = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
-    h, xb, gb = SWIN_CFG["num_heads"], x.bfloat16(), g.bfloat16()
+    h, xb, gb = cfg["num_heads"], x.bfloat16(), g.bfloat16()
     names = ("dx", "dwqkv", "dbqkv", "dwo", "dbo", "dbias")
     worst = 0.0
     for m in (None, mask):
@@ -887,9 +913,11 @@ def phase_wattn_bwd(dev, rng):
         for i, name in enumerate(names):
             out = check_pair(f"window_attention_bwd {'shifted' if m is not None else 'unshifted'} "
                              f"{name}", *(o[i] for o in outs))
-            say("11 kernel window_attention_bwd", **out)
+            say(label, t=x.shape[1], nw=nw, **out)
             worst = max(worst, out["bf16_vs_plain_abs"])
         del outs
+    if not timed:
+        return None
 
     def library_backward(m):
         """The composition's autograd backward alone (its forward kept)."""
@@ -898,12 +926,12 @@ def phase_wattn_bwd(dev, rng):
         return lambda: torch.autograd.grad(y, leaves, gb, retain_graph=True)
 
     timing = {}
-    for label, m in (("unshifted", None), ("shifted", mask)):
-        timing[label] = dict(
+    for name, m in (("unshifted", None), ("shifted", mask)):
+        timing[name] = dict(
             ms=time_ms(lambda: twa.window_attention_bwd(xb, gb, *ws, m, h)),
             plain_ms=time_ms(lambda: twa.window_attention_bwd_plain(xb, gb, *ws, m, h), iters=3),
             library_ms=time_ms(library_backward(m)))
-    fl = _wattn_flops(SWIN_NW)
+    fl = _wattn_flops(cfg, nw)
     # recompute (qkv, q·kᵀ, p·v); dwo, do; dv, dp, dq, dk; dwqkv, dx
     flops = (3 + 2 + 3 + 3) * fl["proj"] + 6 * fl["core"]
     # x and g read and dx written (bf16); the mask; weights read (bf16);
@@ -912,11 +940,42 @@ def phase_wattn_bwd(dev, rng):
         + 2 * (ws[0].numel() + ws[2].numel()) + 4 * sum(w.numel() for w in ws) \
         + 4 * (ws[1].numel() + ws[3].numel() + ws[4].numel())
     bound, by = bound_ms(nbytes, flops), bound_by(nbytes, flops)
-    say("11 kernel window_attention_bwd timing", nw=SWIN_NW, dtype="bf16", **timing,
+    say(f"{label} timing", t=x.shape[1], nw=nw, dtype="bf16", **timing,
         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops)
     t = timing["shifted"]
     return dict(max_abs_err=worst, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bound,
                 bound_by=by, library_ms=t["library_ms"])
+
+
+def phase_wattn(dev, rng):
+    return _wattn_fwd_case(dev, rng, SWIN_CFG, SWIN_NW, "10 kernel window_attention")
+
+
+def phase_wattn_bwd(dev, rng):
+    return _wattn_bwd_case(dev, rng, SWIN_CFG, SWIN_NW, "11 kernel window_attention_bwd")
+
+
+def phase_wattn_tiled(dev, rng):
+    """Phase 22: the tiled kernels at SwinIR-w16's 432 windows of T = 256,
+    timed; then T = 16 (4×4 windows) and T = 144 (12×12, head width 32) at
+    a few windows, checked only. Each kernel must launch on its tiled key
+    alone."""
+    from sres_tpu_torch.ops import window_attention as twa
+    twa.reset_launches()
+    kern = {"window_attention_tiled": _wattn_fwd_case(
+                dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention_tiled"),
+            "window_attention_bwd_tiled": _wattn_bwd_case(
+                dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention_bwd_tiled")}
+    for ws, heads, nw, tile in ((4, 4, 8, (8, 16)), (12, 2, 6, (24, 36))):
+        cfg = dict(SWIN16_CFG, window_size=ws, num_heads=heads)
+        _wattn_fwd_case(dev, rng, cfg, nw, "22 kernel window_attention_tiled", tile, False)
+        _wattn_bwd_case(dev, rng, cfg, nw, "22 kernel window_attention_bwd_tiled", tile, False)
+    launches = dict(twa.LAUNCHES)
+    say("22 kernel launches", launches=launches)
+    if launches["window_attention"] or launches["window_attention_bwd"] or not (
+            launches["window_attention_tiled"] and launches["window_attention_bwd_tiled"]):
+        raise CheckFailed(f"tiled T went to the T = 64 kernels or to none: {launches}")
+    return kern
 
 
 def _composition_forward(self, win, mask=None):
@@ -961,14 +1020,24 @@ def _windows(run, names, n):
     return {k: (statistics.median(v), v) for k, v in out.items()}
 
 
-def phase_swin_serve(dev, seed):
+def _wattn_keys(cfg):
+    """The LAUNCHES keys (forward, backward) of the kernels ``cfg``'s windows
+    run on: the T = 64 kernels for 8×8 windows, the tiled ones otherwise."""
+    return (("window_attention", "window_attention_bwd") if cfg["window_size"] == 8
+            else ("window_attention_tiled", "window_attention_bwd_tiled"))
+
+
+def phase_swin_serve(dev, seed, cfg=SWIN_CFG, label="12 swinir"):
+    """Phase 12 (``cfg`` = SWIN_CFG) or 23 (SWIN16_CFG): three requests; every
+    window attention on the kernels of ``cfg``'s T and none on the other
+    mode's; returns the launches of the mode's two keys."""
     import torch
     from sres_tpu_torch.models import build_model
     from sres_tpu_torch.models.layers import set_plain_twins
     from sres_tpu_torch.ops import window_attention as twa
     from sres_tpu_torch.trainer.step import build_eval_step, make_step_config
-    model = build_model(SWIN_CFG, 1, 1, precision="bf16", seed=seed, device=dev)
-    sc = make_step_config(TASK_CFG, SWIN_CFG)
+    model = build_model(cfg, 1, 1, precision="bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, cfg)
     eval_step = build_eval_step(model, sc)
     rng = np.random.default_rng(seed + 3)
     reqs = [torch.from_numpy(smooth_fields(rng, SWIN_BATCH, SWIN_HR)).to(dev)
@@ -982,15 +1051,16 @@ def phase_swin_serve(dev, seed):
     launches = dict(twa.LAUNCHES)
     for i, (met, (lr, out, tar, interp)) in enumerate(results):
         s, si = float(met["sloss"]), float(met["interp_sloss"])
-        say("12 swinir request", request=i, sloss=s, interp_sloss=si,
+        say(f"{label} request", request=i, sloss=s, interp_sloss=si,
             ratio_pct=100.0 * s / si, out_shape=list(out.shape))
         if not (math.isfinite(s) and math.isfinite(si) and si > 0
                 and tuple(out.shape) == (SWIN_BATCH, 1, SWIN_HR, SWIN_HR)
                 and bool(torch.isfinite(out).all())):
             raise CheckFailed(f"swinir request {i}: non-finite or misshapen output")
-    nattn = SWIN_CFG["nlayers"] * SWIN_CFG["nblocks"]
-    want = {"window_attention": NREQ * nattn, "window_attention_bwd": 0}
-    say("12 swinir launches", launches=launches, expected=want)
+    fwd_key, bwd_key = _wattn_keys(cfg)
+    want = dict.fromkeys(twa.LAUNCHES, 0)
+    want[fwd_key] = NREQ * cfg["nlayers"] * cfg["nblocks"]
+    say(f"{label} launches", launches=launches, expected=want)
     if launches != want:
         raise CheckFailed(f"swinir launches {launches} != expected {want}")
 
@@ -998,13 +1068,13 @@ def phase_swin_serve(dev, seed):
     set_plain_twins(model, True)
     out_p = eval_step(reqs[0], weight)[1][1]
     set_plain_twins(model, False)
-    ref = build_model(SWIN_CFG, 1, 1, precision="f32", device=dev)
+    ref = build_model(cfg, 1, 1, precision="f32", device=dev)
     ref.load_state_dict(model.state_dict())
     set_plain_twins(ref, True)
     out_t = build_eval_step(ref, sc)(reqs[0], weight)[1][1]
     del ref
     e_k, e_p = rel_err(out_k, out_t), rel_err(out_p, out_t)
-    say("12 swinir vs plain", bf16_kernel_rel=e_k, bf16_plain_rel=e_p,
+    say(f"{label} vs plain", bf16_kernel_rel=e_k, bf16_plain_rel=e_p,
         bound=2 * e_p + 1e-4, kernel_vs_plain_abs=float((out_k - out_p).abs().max()))
     if not e_k <= 2 * e_p + 1e-4:
         raise CheckFailed(f"swinir output outside the bf16 envelope: {e_k} > 2*{e_p}+1e-4")
@@ -1015,28 +1085,30 @@ def phase_swin_serve(dev, seed):
     timing = _windows(run, ("kernel", "composition"), NREQ)
     use_composition(model, False)
     for name, (med, ws) in timing.items():
-        say(f"12 swinir timing {name}", windows_ms_per_request=ws, ms_per_request=med,
+        say(f"{label} timing {name}", windows_ms_per_request=ws, ms_per_request=med,
             tiles_per_s=SWIN_BATCH / (med / 1e3))
     busy = {}
     for name in ("kernel", "composition"):
         use_composition(model, name == "composition")
-        busy[name] = profile_device(f"12 swinir profile {name}",
+        busy[name] = profile_device(f"{label} profile {name}",
                                     lambda: eval_step(reqs[0], weight), top=14)
     use_composition(model, False)
-    say("12 swinir summary", **{f"{k}_ms_per_request": v[0] for k, v in timing.items()},
+    say(f"{label} summary", **{f"{k}_ms_per_request": v[0] for k, v in timing.items()},
         **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy})
-    return launches
+    return {fwd_key: launches[fwd_key], bwd_key: launches[bwd_key]}
 
 
-def phase_swin_train(dev, seed):
+def phase_swin_train(dev, seed, cfg=SWIN_CFG, label="13 swinir"):
+    """Phase 13 (``cfg`` = SWIN_CFG) or 24 (SWIN16_CFG); launches checked as
+    in ``phase_swin_serve``; returns those of the three Adam steps."""
     import torch
     from sres_tpu_torch.models import build_model
     from sres_tpu_torch.models.layers import set_plain_twins
     from sres_tpu_torch.ops import window_attention as twa
     from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
                                              make_step_config)
-    model = build_model(SWIN_CFG, 1, 1, "bf16", seed=seed, device=dev)
-    sc = make_step_config(TASK_CFG, SWIN_CFG)
+    model = build_model(cfg, 1, 1, "bf16", seed=seed, device=dev)
+    sc = make_step_config(TASK_CFG, cfg)
     rng = np.random.default_rng(seed + 4)
     batches = [torch.from_numpy(smooth_fields(rng, SWIN_BATCH, SWIN_HR)).to(dev)
                for _ in range(NSTEP)]
@@ -1044,7 +1116,7 @@ def phase_swin_train(dev, seed):
 
     # one step's loss and gradients: kernels (bf16) and plain twins (bf16)
     # against the plain twins in f32, per Swin group and the rest
-    ref = build_model(SWIN_CFG, 1, 1, "f32", device=dev)
+    ref = build_model(cfg, 1, 1, "f32", device=dev)
     ref.load_state_dict(model.state_dict())
     set_plain_twins(ref, True)
     lt, gt = _loss_and_grads(ref, sc, batches[0], weight)
@@ -1055,7 +1127,7 @@ def phase_swin_train(dev, seed):
     set_plain_twins(model, False)
     torch.cuda.synchronize()
     parts = {f"group{g}": (lambda n, g=g: n.startswith(f"layers.{g}."))
-             for g in range(SWIN_CFG["nlayers"])}
+             for g in range(cfg["nlayers"])}
     parts["attention"] = lambda n: ".attn." in n
     parts["rest"] = lambda n: not n.startswith("layers.")
     for part, sel in parts.items():
@@ -1064,23 +1136,24 @@ def phase_swin_train(dev, seed):
             if not torch.isfinite(v).all():
                 raise CheckFailed(f"swinir train {part}: non-finite gradient or loss")
         e_k, e_p = rel_err(k, t), rel_err(p, t)
-        say("13 swinir train step vs plain", part=part, bf16_kernel_rel=e_k,
+        say(f"{label} train step vs plain", part=part, bf16_kernel_rel=e_k,
             bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
         if not e_k <= 2 * e_p + 1e-4:
             raise CheckFailed(f"swinir train {part}: outside the bf16 envelope "
                               f"{e_k} > 2*{e_p}+1e-4")
     e_k, e_p = rel_err(lk, lt), rel_err(lp, lt)
-    say("13 swinir train step vs plain", part="loss", bf16_kernel_rel=e_k,
+    say(f"{label} train step vs plain", part="loss", bf16_kernel_rel=e_k,
         bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
     if not e_k <= 2 * e_p + 1e-4:
         raise CheckFailed(f"swinir train loss outside the bf16 envelope {e_k} > 2*{e_p}+1e-4")
     del gk, gp, gt
 
     step = build_train_step(model, build_optimizer(model, SWIN_TRAIN_TASK), sc)
-    nattn = SWIN_CFG["nlayers"] * SWIN_CFG["nblocks"]
-    want = {"window_attention": nattn, "window_attention_bwd": nattn}
+    keys = _wattn_keys(cfg)
+    want = dict.fromkeys(twa.LAUNCHES, 0)
+    want.update(dict.fromkeys(keys, cfg["nlayers"] * cfg["nblocks"]))
     torch.cuda.reset_peak_memory_stats(dev)
-    total, losses = dict.fromkeys(want, 0), []
+    total, losses = dict.fromkeys(keys, 0), []
     # the Adam steps revisit one batch, so that its loss must fall; on fresh
     # batches the random-weight loss follows each batch's spread instead
     for i in range(NSTEP):
@@ -1089,7 +1162,7 @@ def phase_swin_train(dev, seed):
         torch.cuda.synchronize()
         launches = dict(twa.LAUNCHES)
         vals = {k: float(v) for k, v in met.items()}
-        say("13 swinir train step", step=i, **vals, launches=launches, expected=want)
+        say(f"{label} train step", step=i, **vals, launches=launches, expected=want)
         if not all(math.isfinite(v) for v in vals.values()):
             raise CheckFailed(f"swinir train step {i}: non-finite metrics {vals}")
         if launches != want:
@@ -1101,7 +1174,7 @@ def phase_swin_train(dev, seed):
     if not losses[-1] < losses[0]:
         raise CheckFailed(f"swinir loss did not fall over {NSTEP} Adam steps: {losses}")
 
-    comp = build_model(SWIN_CFG, 1, 1, "bf16", device=dev)
+    comp = build_model(cfg, 1, 1, "bf16", device=dev)
     comp.load_state_dict(model.state_dict())
     use_composition(comp, True)
     steps = {"kernel": step,
@@ -1113,12 +1186,12 @@ def phase_swin_train(dev, seed):
     torch.cuda.synchronize()
     peak_comp_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     for name, (med, ws) in timing.items():
-        say(f"13 swinir train timing {name}", windows_ms_per_step=ws,
+        say(f"{label} train timing {name}", windows_ms_per_step=ws,
             median_ms_per_step=med, tiles_per_s=SWIN_BATCH / (med / 1e3))
-    busy = {name: profile_device(f"13 swinir train profile {name}",
+    busy = {name: profile_device(f"{label} train profile {name}",
                                  lambda: steps[name](batches[0], weight), top=14)
             for name in ("kernel", "composition")}
-    say("13 swinir train summary",
+    say(f"{label} train summary",
         **{f"{k}_ms_per_step": v[0] for k, v in timing.items()},
         **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy},
         peak_mem_gb_kernel=peak_gb, peak_mem_gb_composition_step=peak_comp_gb,
@@ -2064,6 +2137,9 @@ def main() -> int:
     for k, v in phase_edsr_train(dev, args.seed).items():
         launches[k] += v
     launches.update(chain_launches)
+    kern.update(phase_wattn_tiled(dev, rng))
+    serve_launches.update(phase_swin_serve(dev, args.seed, SWIN16_CFG, "23 swinir-w16"))
+    launches.update(phase_swin_train(dev, args.seed, SWIN16_CFG, "24 swinir-w16"))
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -2076,6 +2152,9 @@ def main() -> int:
              "ca_skip_bwd": (bwd_src, "sres_tpu/ops/pallas/wino_group_grad.py:324"),
              "window_attention": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
              "window_attention_bwd": (wa_src, "sres_tpu/ops/pallas/window_attention.py:84"),
+             "window_attention_tiled": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
+             "window_attention_bwd_tiled": (wa_src,
+                                            "sres_tpu/ops/pallas/window_attention.py:84"),
              "fgroup_conv": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
              "fgroup_ca": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
              "fgroup_wgrad": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),

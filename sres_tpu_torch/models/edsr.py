@@ -47,7 +47,6 @@ class EDSR(nn.Module):
             self.body = nn.Sequential(
                 *[ResBlock(nf, k, use_bias, res_scale) for _ in range(nlayers)],
                 Conv(nf, nf, k, use_bias))
-        # the JAX model's upsampler always has a bias (edsr.py:123)
         self.tail = nn.Sequential(SPUpsample(scale, nf),
                                   Conv(nf, nchannels_out, k, use_bias))
 

@@ -38,9 +38,8 @@ class FusedResidualGroup(ResidualGroup):
     """nblocks × RCAB + trailing conv + group skip through the fused-group
     kernels; parameters of ``layers.ResidualGroup``."""
 
-    def __init__(self, features: int, reduction: int, nblocks: int,
-                 bias: bool = True):
-        super().__init__(features, 3, reduction, nblocks, bias)
+    def __init__(self, features: int, reduction: int, nblocks: int):
+        super().__init__(features, 3, reduction, nblocks)
         self.plain = False
         self._cache: Optional[Tuple] = None
 

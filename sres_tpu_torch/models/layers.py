@@ -52,14 +52,15 @@ class CALayer(nn.Module):
 
 class RCAB(nn.Module):
     """Residual channel-attention block (reference rcan/network.py:50):
-    body = conv → ReLU → conv → CA, then the block skip."""
+    body = conv → ReLU → conv → CA, then the block skip. Its convs always
+    have a bias, whatever ``model.bias`` says (sres_tpu/models/layers.py
+    :392-395)."""
 
-    def __init__(self, features: int, kernel_size: int, reduction: int,
-                 bias: bool = True):
+    def __init__(self, features: int, kernel_size: int, reduction: int):
         super().__init__()
-        self.body = nn.Sequential(Conv(features, features, kernel_size, bias),
+        self.body = nn.Sequential(Conv(features, features, kernel_size),
                                   nn.ReLU(),
-                                  Conv(features, features, kernel_size, bias),
+                                  Conv(features, features, kernel_size),
                                   CALayer(features, reduction))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,15 +69,14 @@ class RCAB(nn.Module):
 
 class ResidualGroup(nn.Module):
     """nblocks × RCAB + trailing conv + group skip (reference
-    rcan/network.py:67)."""
+    rcan/network.py:67); the trailing conv always has a bias
+    (sres_tpu/models/layers.py:433)."""
 
     def __init__(self, features: int, kernel_size: int, reduction: int,
-                 nblocks: int, bias: bool = True):
+                 nblocks: int):
         super().__init__()
-        blocks = [RCAB(features, kernel_size, reduction, bias)
-                  for _ in range(nblocks)]
-        self.body = nn.Sequential(*blocks,
-                                  Conv(features, features, kernel_size, bias))
+        blocks = [RCAB(features, kernel_size, reduction) for _ in range(nblocks)]
+        self.body = nn.Sequential(*blocks, Conv(features, features, kernel_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.body(x)
@@ -101,15 +101,16 @@ class ResBlock(nn.Module):
 class SPUpsample(nn.Sequential):
     """Sub-pixel upsampler: per ×2 (or ×3) stage a conv to r²·C channels and
     a pixel shuffle (reference common/upsample.py:32). Indices 0, 2 hold the
-    convs for ×4."""
+    convs for ×4. Its convs always have a bias: every JAX model builds its
+    ``SPUpsample`` with the default ``use_bias=True``."""
 
-    def __init__(self, scale: int, features: int, bias: bool = True):
+    def __init__(self, scale: int, features: int):
         stages = []
         if scale & (scale - 1) == 0:
             for _ in range(int(math.log2(scale))):
-                stages += [Conv(features, 4 * features, 3, bias), nn.PixelShuffle(2)]
+                stages += [Conv(features, 4 * features, 3), nn.PixelShuffle(2)]
         elif scale == 3:
-            stages += [Conv(features, 9 * features, 3, bias), nn.PixelShuffle(3)]
+            stages += [Conv(features, 9 * features, 3), nn.PixelShuffle(3)]
         else:
             raise NotImplementedError(f"SPUpsample scale {scale}")
         super().__init__(*stages)

@@ -14,6 +14,11 @@ memory; the parameter set is the same as the direct path's. Unlike the JAX
 model, an unsupported geometry (H or W not a multiple of m) raises instead
 of falling back to the direct path.
 
+``use_bias`` (``model.bias``) reaches the head, the body conv and the tail
+conv only, as in JAX (sres_tpu/models/rcan.py:67, 118/135/158, 176): the
+RCAB convs, each group's trailing conv and the upsampler always have a
+bias, on every trunk.
+
 ``fused`` runs every residual group through the direct-conv group kernels
 (models/fused.py) in channels_last memory; the body conv and the global
 skip stay as in the direct path (sres_tpu/models/rcan.py:158-161), and
@@ -50,19 +55,19 @@ class RCAN(nn.Module):
         nf, k = nfeatures, kernel_size
         self.head = nn.Sequential(Conv(nchannels_in, nf, k, use_bias))
         if fused:
-            groups = [FusedResidualGroup(nf, cbottleneck, nblocks, use_bias)
+            groups = [FusedResidualGroup(nf, cbottleneck, nblocks)
                       for _ in range(nlayers)]
             body_conv = Conv(nf, nf, k, use_bias)
         elif winograd:
-            groups = [WinoResidualGroup(nf, cbottleneck, nblocks, winograd,
-                                        use_bias) for _ in range(nlayers)]
+            groups = [WinoResidualGroup(nf, cbottleneck, nblocks, winograd)
+                      for _ in range(nlayers)]
             body_conv = WinoConv(nf, nf, winograd, use_bias)
         else:
-            groups = [ResidualGroup(nf, k, cbottleneck, nblocks, use_bias)
+            groups = [ResidualGroup(nf, k, cbottleneck, nblocks)
                       for _ in range(nlayers)]
             body_conv = Conv(nf, nf, k, use_bias)
         self.body = nn.Sequential(*groups, body_conv)
-        self.tail = nn.Sequential(SPUpsample(scale, nf, use_bias),
+        self.tail = nn.Sequential(SPUpsample(scale, nf),
                                   Conv(nf, nchannels_out, k, use_bias))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

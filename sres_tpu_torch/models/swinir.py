@@ -130,10 +130,14 @@ class SwinBlock(nn.Module):
         self._masks: Dict[Tuple, torch.Tensor] = {}
 
     def _mask(self, h: int, w: int, dev: torch.device) -> torch.Tensor:
+        """The (nm, T, T) group mask of an h×w tile, cached; a normal tensor
+        even when first built under ``inference_mode``, so that a model
+        served and then trained can save it for backward."""
         key = (h, w, dev)
         if key not in self._masks:
-            self._masks[key] = torch.from_numpy(
-                shift_attn_mask(h, w, self.window_size, self.shift)).to(dev)
+            with torch.inference_mode(False):
+                self._masks[key] = torch.from_numpy(
+                    shift_attn_mask(h, w, self.window_size, self.shift)).to(dev)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

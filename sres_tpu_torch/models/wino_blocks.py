@@ -71,12 +71,12 @@ def _bias(conv: Conv) -> torch.Tensor:
     return torch.zeros(conv.out_channels, device=conv.weight.device)
 
 
-def group_params(group: ResidualGroup) -> List[Optional[torch.Tensor]]:
+def group_params(group: ResidualGroup) -> List[torch.Tensor]:
     """A residual group's parameters in the order the group autograd
     Functions take them: per RCAB conv1 w, b, conv2 w, b, CA conv 1 w, b, CA
-    conv 2 w, b; then the trailing conv's w, b (None for an absent bias)."""
+    conv 2 w, b; then the trailing conv's w, b."""
     blocks, trail = list(group.body)[:-1], group.body[-1]
-    out: List[Optional[torch.Tensor]] = []
+    out: List[torch.Tensor] = []
     for blk in blocks:
         ca = blk.body[3].conv_du
         for conv in (blk.body[0], blk.body[2], ca[0], ca[2]):
@@ -117,9 +117,8 @@ class WinoResidualGroup(ResidualGroup):
     """nblocks × RCAB + trailing conv + group skip as one ``wino_group_fwd``
     call (trailing conv folded in); parameters of ``layers.ResidualGroup``."""
 
-    def __init__(self, features: int, reduction: int, nblocks: int, m: int,
-                 bias: bool = True):
-        super().__init__(features, 3, reduction, nblocks, bias)
+    def __init__(self, features: int, reduction: int, nblocks: int, m: int):
+        super().__init__(features, 3, reduction, nblocks)
         self.m = m
         self.plain = False
         self._cache: Optional[Tuple] = None
@@ -134,19 +133,20 @@ class WinoResidualGroup(ResidualGroup):
     def _collect(self, dtype: torch.dtype) -> Tuple:
         blocks, trail = list(self.body)[:-1], self.body[-1]
         ws, bv, cw1, cb1, cw2, cb2 = [], [], [], [], [], []
+        b = lambda conv: conv.bias.detach().float()
         for blk in blocks:
             c1, c2, ca = blk.body[0], blk.body[2], blk.body[3]
             ws.append(torch.stack([transform_weights(c.weight, self.m)
                                    for c in (c1, c2)]))
-            bv.append(torch.stack([_bias(c1), _bias(c2)]))
+            bv.append(torch.stack([b(c1), b(c2)]))
             d1, d2 = ca.conv_du[0], ca.conv_du[2]
             cw1.append(d1.weight.detach()[:, :, 0, 0].float())
-            cb1.append(_bias(d1))
+            cb1.append(b(d1))
             cw2.append(d2.weight.detach()[:, :, 0, 0].float())
-            cb2.append(_bias(d2))
+            cb2.append(b(d2))
         st = torch.stack
         return (st(ws).to(dtype), st(bv), st(cw1), st(cb1), st(cw2), st(cb2),
-                transform_weights(trail.weight, self.m).to(dtype), _bias(trail))
+                transform_weights(trail.weight, self.m).to(dtype), b(trail))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ops = self._operands(x.dtype)

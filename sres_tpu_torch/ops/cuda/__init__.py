@@ -72,6 +72,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_wattn_fwd.argtypes = [vp] * 8 + [i] * 3 + [f] + [i] * 2 + [vp]
     lib.sres_wattn_bwd.restype = i
     lib.sres_wattn_bwd.argtypes = [vp] * 11 + [i] * 3 + [f] + [i] * 3 + [vp]
+    for name in ("sres_wattn_tile", "sres_wattn_max_tokens"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = []
+    lib.sres_wattn_tiled_fwd.restype = i
+    lib.sres_wattn_tiled_fwd.argtypes = [vp] * 8 + [i] * 4 + [f] + [i] * 2 + [vp]
+    lib.sres_wattn_tiled_bwd.restype = i
+    lib.sres_wattn_tiled_bwd.argtypes = [vp] * 14 + [i] * 4 + [f] + [i] * 4 + [vp]
     lib.sres_fg_tiles.restype = i
     lib.sres_fg_tiles.argtypes = [i, i]
     lib.sres_fg_conv.restype = i

@@ -503,8 +503,8 @@ class FusedGroupFn(torch.autograd.Function):
     ``fused_group_bwd`` as its backward (the ``fused_residual_group`` VJP,
     residual_group.py:433-449). ``params`` are the group's parameters in
     module order (per RCAB conv1 w, b, conv2 w, b, CA conv 1 w, b, CA conv 2
-    w, b; then the trailing conv's w, b; None for an absent bias); each gets
-    its gradient in its own dtype and shape."""
+    w, b; then the trailing conv's w, b: a group's convs always have a
+    bias); each gets its gradient in its own dtype and shape."""
 
     @staticmethod
     def forward(ctx, x, ops, plain, *params):
@@ -513,7 +513,7 @@ class FusedGroupFn(torch.autograd.Function):
         ctx.nb = len(st.a)
         ctx.save_for_backward(*st.x, *st.a, *st.c, *st.gate)
         ctx.ops, ctx.plain = ops, plain
-        ctx.metas = [None if p is None else (p.shape, p.dtype) for p in params]
+        ctx.metas = [(p.shape, p.dtype) for p in params]
         return y
 
     @staticmethod
@@ -528,8 +528,7 @@ class FusedGroupFn(torch.autograd.Function):
             flat += [torch_weight_grad(dw1), db1, torch_weight_grad(dw2), db2,
                      dcw1, dcb1, dcw2, dcb2]
         flat += [torch_weight_grad(dwg), dbg]
-        out = [None if meta is None else gr.reshape(meta[0]).to(meta[1])
-               for gr, meta in zip(flat, ctx.metas)]
+        out = [gr.reshape(shape).to(dt) for gr, (shape, dt) in zip(flat, ctx.metas)]
         return (dx, None, None, *out)
 
 
@@ -537,11 +536,7 @@ def group_ops(blocks: Sequence, trail, dtype: torch.dtype) -> GroupOps:
     """GroupOps from a ResidualGroup's RCABs and trailing conv (layers.py
     modules), in the activation dtype ``dtype``: a few batched ops per
     group."""
-    def bias(conv):
-        if conv.bias is not None:
-            return conv.bias.detach().float()
-        return torch.zeros(conv.out_channels, device=conv.weight.device)
-
+    bias = lambda conv: conv.bias.detach().float()
     nb = len(blocks)
     convs = [c for blk in blocks for c in (blk.body[0], blk.body[2])] + [trail]
     w = torch.stack([c.weight.detach() for c in convs])

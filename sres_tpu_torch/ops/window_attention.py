@@ -18,9 +18,15 @@ this is the JAX module's tiled (NW, T, T) mask, swinir.py:124-127). The
 columns of qkv hold q, k, v in turn, head hh at [hh·hd, (hh+1)·hd) of each.
 
 Dispatch is by the device of ``x``: a CPU tensor goes to the ``*_plain``
-twin, a CUDA tensor to the hand-written kernel in ``ops/cuda/
+twin, a CUDA tensor to a hand-written kernel in ``ops/cuda/
 window_attention.cu``, and anything else raises; a kernel that fails to
-build or launch raises.
+build or launch raises. On the card the kernel is picked by T: T = 64 (8×8
+windows) runs the whole-window kernels (``wattn_fwd_kernel``,
+``wattn_bwd_kernel``); any other multiple of 16 up to 256 (4×4, 12×12,
+16×16 windows) the tiled ones (``wattn_tiled_fwd_kernel``; backward
+``wattn_tiled_bwd_kernel`` + ``wattn_tiled_dbias_kernel``), which walk
+query tiles because a 16×16 window does not fit an SM; any other T raises
+``NotImplementedError``.
 
 Rounding points (kernel and twin alike; every product accumulates in f32):
 the JAX kernel keeps qkv, p and the backward's do, ds in f32, but the
@@ -31,9 +37,10 @@ y after it, and dqkv before dwqkv and dx; dbqkv sums the unrounded dqkv.
 In f32 nothing rounds. The weight gradients stay f32 (the JAX VJP casts
 them to the weights' dtype, :229-232).
 
-``LAUNCHES`` counts kernel launches per wrapper (one per wrapper call that
-reached its kernel), so a run can show that its main path went through the
-kernels.
+``LAUNCHES`` counts kernel launches per wrapper and mode (one per wrapper
+call that reached its kernel: ``window_attention`` and
+``window_attention_bwd`` at T = 64, the ``*_tiled`` keys at the other T),
+so a run can show that its main path went through the kernels, and which.
 """
 from __future__ import annotations
 
@@ -41,10 +48,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"window_attention": 0, "window_attention_bwd": 0}
+LAUNCHES: Dict[str, int] = {"window_attention": 0, "window_attention_bwd": 0,
+                            "window_attention_tiled": 0,
+                            "window_attention_bwd_tiled": 0}
 
-# persistent blocks of the backward kernel: one per SM of an H100; each
-# owns one f32 partial of the weight gradients
+# persistent blocks of the backward kernels: one per SM of an H100; each
+# owns one f32 partial of the weight gradients (at T = 64 of dbias too)
 _BWD_BLOCKS = 132
 
 
@@ -133,17 +142,19 @@ def window_attention_bwd_plain(x: torch.Tensor, g: torch.Tensor,
 # ----------------------------------------------------------- CUDA wrappers
 def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
     """Everything the kernels take, checked, contiguous, on x's device:
-    weights in x.dtype, the rest f32; returns (ops, nm)."""
+    weights in x.dtype, the rest f32; returns (ops, nm, tiled), ``tiled``
+    whether T goes to the tiled kernels."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"x must be (NW, T, C), got {tuple(x.shape)}")
     nw, t, c = x.shape
-    if t != lib.sres_wattn_tokens():
+    tile, tmax = lib.sres_wattn_tile(), lib.sres_wattn_max_tokens()
+    if t % tile or not 0 < t <= tmax:
         raise NotImplementedError(
-            f"the window-attention kernel takes T = {lib.sres_wattn_tokens()} "
-            f"tokens (8×8 windows), got T = {t}; the T = 256 (16×16) mode is "
-            "still to port (ROADMAP Queue 2 rows 7, 8)")
+            f"the window-attention kernels take T = {lib.sres_wattn_tokens()} or "
+            f"a multiple of {tile} up to {tmax} tokens a window, got T = {t}: "
+            "not ported (ROADMAP Queue 2 rows 7, 8)")
     if c != lib.sres_channels():
         raise ValueError(f"x: kernel takes (NW, {t}, {lib.sres_channels()}), "
                          f"got {tuple(x.shape)}")
@@ -171,7 +182,7 @@ def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
         mask = mask.to(f32).contiguous()
         nm = mask.shape[0]
     ops.append(mask)
-    return ops, nm
+    return ops, nm, t != lib.sres_wattn_tokens()
 
 
 def _ptr(a: Optional[torch.Tensor]) -> Optional[int]:
@@ -185,22 +196,26 @@ def _stream(dev: torch.device) -> int:
 def _fwd_cuda(x, wqkv, bqkv, wo, bo, bias, mask, heads):
     from sres_tpu_torch.ops import cuda
     lib = cuda.load()
-    ops, nm = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
+    ops, nm, tiled = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
     x = ops[0]
+    nw, t, c = x.shape
     y = torch.empty_like(x)
-    err = lib.sres_wattn_fwd(*(_ptr(a) for a in ops), y.data_ptr(),
-                             x.shape[0], nm, heads, _scale(x.shape[2], heads),
-                             int(x.dtype == torch.bfloat16), x.device.index or 0,
-                             _stream(x.device))
-    cuda.check(err, "window_attention kernel")
-    LAUNCHES["window_attention"] += 1
+    ptrs = [_ptr(a) for a in ops] + [y.data_ptr()]
+    tail = (heads, _scale(c, heads), int(x.dtype == torch.bfloat16),
+            x.device.index or 0, _stream(x.device))
+    if tiled:
+        err, key = lib.sres_wattn_tiled_fwd(*ptrs, nw, t, nm, *tail), "window_attention_tiled"
+    else:
+        err, key = lib.sres_wattn_fwd(*ptrs, nw, nm, *tail), "window_attention"
+    cuda.check(err, f"{key} kernel")
+    LAUNCHES[key] += 1
     return y
 
 
 def _bwd_cuda(x, g, wqkv, bqkv, wo, bo, bias, mask, heads):
     from sres_tpu_torch.ops import cuda
     lib = cuda.load()
-    ops, nm = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
+    ops, nm, tiled = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
     x = ops[0]
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must be shaped like x on {x.device}, got "
@@ -209,17 +224,30 @@ def _bwd_cuda(x, g, wqkv, bqkv, wo, bo, bias, mask, heads):
     nw, t, c = x.shape
     nblk = min(nw, _BWD_BLOCKS)
     sizes = [3 * c * c, 3 * c, c * c, c, heads * t * t]
-    width = sum(sizes)
-    part = torch.empty((nblk, width), dtype=torch.float32, device=x.device)
-    grads = torch.empty(width, dtype=torch.float32, device=x.device)
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    err = lib.sres_wattn_bwd(*(_ptr(a) for a in ops), g.data_ptr(),
-                             dx.data_ptr(), part.data_ptr(), grads.data_ptr(),
-                             nw, nm, heads, _scale(c, heads), nblk,
-                             int(x.dtype == torch.bfloat16),
-                             x.device.index or 0, _stream(x.device))
-    cuda.check(err, "window_attention_bwd kernel")
-    LAUNCHES["window_attention_bwd"] += 1
+    empty = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=x.device)
+    ptrs = [_ptr(a) for a in ops] + [g.data_ptr(), dx.data_ptr()]
+    tail = (int(x.dtype == torch.bfloat16), x.device.index or 0, _stream(x.device))
+    if tiled:
+        # the weight partials without dbias; dbias summed per (16 query rows,
+        # head) by its own kernel over nsplit window splits, so that the
+        # card's SMs are about full
+        nsplit = max(1, min(nw, _BWD_BLOCKS // (heads * t // lib.sres_wattn_tile())))
+        stash, scratch = empty(nw, t, 4 * c, dt=x.dtype), empty(nblk, t, 3 * c, dt=x.dtype)
+        part, dbpart = empty(nblk, sum(sizes[:4])), empty(nsplit, heads, t, t)
+        err = lib.sres_wattn_tiled_bwd(
+            *ptrs, stash.data_ptr(), scratch.data_ptr(), part.data_ptr(),
+            dbpart.data_ptr(), grads.data_ptr(), nw, t, nm, heads, _scale(c, heads),
+            nblk, nsplit, *tail)
+        key = "window_attention_bwd_tiled"
+    else:
+        part = empty(nblk, sum(sizes))
+        err = lib.sres_wattn_bwd(*ptrs, part.data_ptr(), grads.data_ptr(), nw, nm,
+                                 heads, _scale(c, heads), nblk, *tail)
+        key = "window_attention_bwd"
+    cuda.check(err, f"{key} kernel")
+    LAUNCHES[key] += 1
     dwqkv, dbqkv, dwo, dbo, dbias = grads.split(sizes)
     return (dx, dwqkv.view(c, 3 * c), dbqkv, dwo.view(c, c), dbo,
             dbias.view(heads, t, t))

@@ -693,8 +693,8 @@ class WinoGroupTrailFn(torch.autograd.Function):
     ``wino_group_fwd`` takes them (the caller's transforms of its
     parameters); ``params`` are the group's parameters in module order,
     per RCAB (conv1 w, b, conv2 w, b, CA conv 1 w, b, CA conv 2 w, b), then
-    the trailing conv's w, b, with None for an absent bias. Each gets its
-    gradient in its own dtype and shape."""
+    the trailing conv's w, b (every one present: a group's convs always
+    have a bias). Each gets its gradient in its own dtype and shape."""
 
     @staticmethod
     def forward(ctx, x, ops, m, plain, *params):
@@ -703,7 +703,7 @@ class WinoGroupTrailFn(torch.autograd.Function):
         y = fwd(x, *ops[:6], m, ops[6], ops[7], stash)
         ctx.save_for_backward(*stash)
         ctx.ops, ctx.m, ctx.plain = ops, m, plain
-        ctx.metas = [None if p is None else (p.shape, p.dtype) for p in params]
+        ctx.metas = [(p.shape, p.dtype) for p in params]
         return y
 
     @staticmethod
@@ -719,8 +719,7 @@ class WinoGroupTrailFn(torch.autograd.Function):
             flat += [dws[k, 0], db[k, 0], dws[k, 1], db[k, 1],
                      dcw1[k], dcb1[k], dcw2[k], dcb2[k]]
         flat += [untransform_weight_grad(dut, ctx.m), dbt]
-        grads = [None if meta is None else gr.reshape(meta[0]).to(meta[1])
-                 for gr, meta in zip(flat, ctx.metas)]
+        grads = [gr.reshape(shape).to(dt) for gr, (shape, dt) in zip(flat, ctx.metas)]
         return (dx, None, None, None, *grads)
 
 

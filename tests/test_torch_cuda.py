@@ -224,15 +224,115 @@ def test_window_attention_bwd_matches_twin(dev, nw, masked):
 def test_window_attention_wrappers_reject_what_the_kernels_do_not_take(dev):
     from sres_tpu_torch.ops import window_attention as twa
     (x, *ws), _ = _wattn_inputs(dev, 8, False, 43)
-    with pytest.raises(NotImplementedError, match="T = 256"):
-        twa.window_attention(torch.zeros(2, 256, 64, device=dev), *ws[:4],
-                             torch.zeros(4, 256, 256, device=dev), None, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 rows 7, 8"):
+        twa.window_attention(torch.zeros(2, 49, 64, device=dev), *ws[:4],
+                             torch.zeros(4, 49, 49, device=dev), None, 4)
     with pytest.raises(ValueError):            # head width 64
         twa.window_attention(x, *ws[:4], ws[4][:1], None, 1)
     with pytest.raises(ValueError):            # torch-layout (3C, C) weight
         twa.window_attention(x, ws[0].T, *ws[1:], None, 4)
     with pytest.raises(ValueError):            # 5 windows per mask group of 4
         twa.window_attention(x[:5], *ws, torch.zeros(4, 64, 64, device=dev), 4)
+
+
+def _tiled_inputs(dev, t, nw, tile, heads, seed):
+    """Window-attention operands at T = t tokens (ws × ws windows), C = 64:
+    x (nw, t, 64), the JAX-layout weights, an (h, t, t) bias, and the
+    shifted-window group mask of a ``tile`` = (H, W) image (None for no
+    tile); nw a multiple of the mask's windows."""
+    from sres_tpu_torch.models.swinir import shift_attn_mask
+    rng = np.random.default_rng(seed)
+    ws = int(round(t ** 0.5))
+    ops = [_t(rng, (nw, t, 64), dev), _t(rng, (64, 192), dev, 0.1),
+           _t(rng, (192,), dev, 0.1), _t(rng, (64, 64), dev, 0.1),
+           _t(rng, (64,), dev, 0.1), _t(rng, (heads, t, t), dev, 0.02)]
+    mask = (torch.from_numpy(shift_attn_mask(*tile, ws, ws // 2)).to(dev)
+            if tile else None)
+    return ops, mask
+
+
+def _tiled_check(dev, t, nw, tile, heads, seed):
+    """The tiled forward and backward kernels against their twins, f32 and
+    bf16, each launched twice and only on its tiled key."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _tiled_inputs(dev, t, nw, tile, heads, seed)
+    g = _t(np.random.default_rng(seed + 1), tuple(x.shape), dev)
+    before = dict(twa.LAUNCHES)
+    _check(lambda x_: twa.window_attention(x_, *ws, mask, heads),
+           lambda x_: twa.window_attention_plain(x_, *ws, mask, heads),
+           (x,), (x.bfloat16(),))
+    run = lambda fn, dt: fn(x.to(dt), g.to(dt), *ws, mask, heads)
+    _check_many(f"tiled bwd t={t} nw={nw} tile={tile}",
+                run(twa.window_attention_bwd, torch.float32),
+                run(twa.window_attention_bwd_plain, torch.float32),
+                run(twa.window_attention_bwd, torch.bfloat16),
+                run(twa.window_attention_bwd_plain, torch.bfloat16))
+    want = dict(before, window_attention_tiled=before["window_attention_tiled"] + 2,
+                window_attention_bwd_tiled=before["window_attention_bwd_tiled"] + 2)
+    assert twa.LAUNCHES == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,tile", [(8, None), (8, (32, 32)), (432, None),
+                                     (432, (96, 96))])
+def test_window_attention_t256_matches_twin(dev, nw, tile):
+    """16×16 windows (T = 256, 4 heads): 8 windows, and SwinIR ×4's 432 at
+    batch 12 of 96×96 LR tiles, unshifted and with the shifted-window mask
+    (4 and 36 windows a group)."""
+    _tiled_check(dev, 256, nw, tile, 4, 50)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,nw,tile,heads", [(16, 8, (8, 16), 4), (144, 6, (24, 36), 2)])
+def test_window_attention_other_tiled_t_matches_twin(dev, t, nw, tile, heads):
+    """4×4 (T = 16) and 12×12 (T = 144, a query tile cut short; head width
+    32) windows, shifted."""
+    _tiled_check(dev, t, nw, tile, heads, 51)
+
+
+@pytest.mark.cuda
+def test_window_attention_t256_bwd_is_deterministic(dev):
+    """Two backward runs give the same bits: fixed-order partial sums."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _tiled_inputs(dev, 256, 432, (96, 96), 4, 52)
+    g = _t(np.random.default_rng(53), tuple(x.shape), dev).bfloat16()
+    a = twa.window_attention_bwd(x.bfloat16(), g, *ws, mask, 4)
+    b = twa.window_attention_bwd(x.bfloat16(), g, *ws, mask, 4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_window_attention_t256_fn_gradients_match_twin(dev):
+    """WindowAttentionFn on the kernels against the same Function on the
+    twins (f32): every gradient within 1e-4·max."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _tiled_inputs(dev, 256, 8, (32, 32), 4, 54)
+    grads = []
+    for plain in (False, True):
+        leaves = [a.detach().clone().requires_grad_() for a in (x, *ws)]
+        y = twa.WindowAttentionFn.apply(*leaves, mask, 4, plain)
+        torch.cos(y).sum().backward()
+        grads.append([a.grad for a in leaves])
+    torch.cuda.synchronize()
+    for k, p in zip(*grads):
+        assert float((k - p).abs().max()) <= 1e-4 * float(p.abs().max())
+
+
+@pytest.mark.cuda
+def test_tiled_wrappers_reject_what_the_kernels_do_not_take(dev):
+    """T = 49 (7×7 windows) and T = 272 are not ported; C = 32 at T = 256
+    raises as at T = 64."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), _ = _tiled_inputs(dev, 256, 2, None, 4, 55)
+    for t in (49, 272):
+        xt, bt = torch.zeros(2, t, 64, device=dev), torch.zeros(4, t, t, device=dev)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 rows 7, 8"):
+            twa.window_attention(xt, *ws[:4], bt, None, 4)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 rows 7, 8"):
+            twa.window_attention_bwd(xt, xt, *ws[:4], bt, None, 4)
+    with pytest.raises(ValueError):            # 32 channels
+        twa.window_attention(x[:, :, :32].contiguous(), *ws, None, 4)
 
 
 def _fg_operands(dev, shape, seed):

@@ -156,6 +156,12 @@ swin_sd = state_dict_from_jax({"params": swin}, scfg)
 swin_model = build_model(scfg, 1, 1, "f32", device="cpu")
 swin_model.load_state_dict(swin_sd, strict=True)
 swin_out = tuple(swin_model(torch.zeros(1, 1, 8, 8)).shape)
+swin16 = build_model(dict(scfg, window_size=16), 1, 1, "f32", device="cpu")
+swin16_out = tuple(swin16(torch.zeros(1, 1, 16, 16)).shape)
+from sres_tpu_torch.ops import window_attention as twa
+z = torch.zeros
+t256_out = tuple(twa.window_attention(z(2, 256, 64), z(64, 192), z(192), z(64, 64), z(64),
+                                      z(4, 256, 256), None, 4).shape)
 ecfg = dict(name="edsr", nfeatures=4, nlayers=1, winograd=2)
 edsr_sd = state_dict_from_jax({"params": {
     "Conv_0": conv(3, 1, 4), "ResBlock_0": {"Conv_0": conv(3, 4, 4), "Conv_1": conv(3, 4, 4)},
@@ -174,6 +180,7 @@ with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
     rc = chip_smoke.main()
 print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
                       swin_keys=len(swin_sd), swin_out=swin_out,
+                      swin16_out=swin16_out, t256_out=t256_out,
                       edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out)))
 """
 
@@ -192,11 +199,14 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     """Nothing of JAX, YAML or the JAX package is loaded, even after calls
     of state_dict_from_jax (20 tensors for a 1-group, 1-RCAB RCAN; 25 for a
     1-group, 1-block SwinIR and 14 for a 1-ResBlock EDSR with ``winograd:
-    2``, which then load strictly and run) and of the conv chain."""
+    2``, which then load strictly and run), of the conv chain, of a window-16
+    SwinIR and of window attention at T = 256 (its CPU twin)."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
     assert fresh_process["swin_keys"] == 25
     assert fresh_process["swin_out"] == [1, 1, 32, 32]
+    assert fresh_process["swin16_out"] == [1, 1, 64, 64]
+    assert fresh_process["t256_out"] == [2, 256, 64]
     assert fresh_process["edsr_keys"] == 14
     assert fresh_process["edsr_out"] == [1, 1, 32, 32]
     assert fresh_process["chain_out"] == [1, 4, 4, 4]

@@ -56,6 +56,43 @@ def test_rcan_matches_jax(jax_rcan, winograd):
                                rtol=0, atol=tol)
 
 
+@pytest.fixture(scope="module")
+def jax_rcan_no_bias():
+    """A tiny JAX RCAN with ``bias: false``: its own parameter tree (shapes
+    from an abstract init, so no flax init compiles; seeded values), an LR
+    batch and the direct JAX model's f32 forward."""
+    cfg = dict(CFG, bias=False)
+    model = jax_build_model(dict(cfg), 1, 1, precision="f32")
+    x = np.random.default_rng(3).normal(size=(2, 8, 8, 1)).astype(np.float32)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    rng = np.random.default_rng(4)
+    draw = lambda a: (rng.uniform(-1, 1, a.shape) * (
+        0.1 if len(a.shape) == 1 else np.prod(a.shape[:-1]) ** -0.5)).astype(np.float32)
+    variables = jax.tree_util.tree_map(draw, shapes)
+    return cfg, x, variables, np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("trunk", [{}, {"winograd": 4}, {"fused": True}],
+                         ids=["direct", "winograd4", "fused"])
+def test_rcan_bias_false_loads_strictly_and_matches_jax(jax_rcan_no_bias, trunk):
+    """``model.bias: false`` drops the bias of the head, the body conv and
+    the tail conv only: the RCAB convs, the trailing conv of each group and
+    the upsampler keep theirs, as in sres_tpu/models/rcan.py. The JAX tree
+    loads strictly into every trunk, which matches the JAX forward within
+    2e-5·max in f32."""
+    cfg, x, variables, want = jax_rcan_no_bias
+    model = _port(dict(cfg, **trunk), variables)
+    keys = set(model.state_dict())
+    assert not {"head.0.bias", "body.1.bias", "tail.1.bias"} & keys
+    trail = f"body.0.body.{cfg['nblocks']}.bias"
+    assert {"body.0.body.0.body.0.bias", "body.0.body.0.body.2.bias", trail,
+            "tail.0.0.bias", "tail.0.2.bias"} <= keys
+    with torch.no_grad():
+        got = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want, rtol=0,
+                               atol=2e-5 * float(np.abs(want).max()))
+
+
 def test_weight_export_copy_matches_jax_exporter(jax_rcan):
     """The port's copy of the RCAN exporter against
     sres_tpu.util.torch_export.export_variables on a seeded tree: the same

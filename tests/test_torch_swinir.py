@@ -187,6 +187,51 @@ def test_train_steps_match_jax(jax_ref):
     assert maxabs < STEPS * TASK["lr"] * 1.5, maxabs
 
 
+def test_window16_matches_jax_forward_and_step_gradients():
+    """16×16 windows (T = 256; on the card the tiled kernels): nfeatures 16,
+    1 group of 2 blocks (the second shifted by 8), 2 heads, a 32×32 LR tile.
+    An unfused JAX tree (``fused_attention: false``: the JAX SwinIR runs its
+    plain attention, no Pallas) loads strictly; the f32 forward is within
+    2e-5·max of the JAX model's, and one step's loss (rtol 1e-5) and every
+    parameter's gradient (rtol 5e-4, atol 5e-6, the trajectory test's bar)
+    match jax.value_and_grad of the JAX step's loss. The module serves (in
+    inference mode) before it trains, so its cached shifted-window masks
+    must be ones autograd can save."""
+    from sres_tpu.trainer.losses import sr_loss as jax_sr_loss
+    from sres_tpu_torch.trainer.losses import sr_loss
+    cfg = dict(CFG, window_size=16, fused_attention=False)
+    sd = build_model(cfg, 1, 1, "f32", seed=SEED, device="cpu").state_dict()
+    params = jax_params(sd, cfg, fused=False)
+    model = _port(cfg, params)
+    blocks = model.layers[0].residual_group.blocks
+    assert [(b.attn.window_size, b.shift) for b in blocks] == [(16, 0), (16, 8)]
+    rng = np.random.default_rng(SEED + 2)
+    x = rng.normal(size=(1, 32, 32, 1)).astype(np.float32)
+    jmodel = jax_build_model(dict(cfg), 1, 1, precision="f32")
+    want = np.asarray(jax.jit(jmodel.apply)({"params": params}, jnp.asarray(x)))
+    np.testing.assert_allclose(_run(model, x), want, rtol=0,
+                               atol=2e-5 * float(np.abs(want).max()))
+
+    hr, weight = rng.normal(size=(1, 1, 128, 128)).astype(np.float32), np.ones(1, np.float32)
+    jsc = jstep.make_step_config(_Cfg(TASK), _Cfg(cfg), has_bn=False)
+
+    def jax_loss(p):
+        lr, target = jstep.prepare_inputs(jnp.asarray(hr), jsc)
+        return jax_sr_loss(jmodel.apply({"params": p}, lr), target, jnp.asarray(weight),
+                           jsc.loss_fn)[1]
+
+    jl, jg = jax.jit(jax.value_and_grad(jax_loss))(params)
+    sc = tstep.make_step_config(TASK, cfg)
+    lr, target = tstep.prepare_inputs(torch.from_numpy(hr), sc)
+    loss = sr_loss(model(lr), target, torch.from_numpy(weight), sc.loss_fn)[1]
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
+    want_g = state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, jg)}, cfg)
+    for k, prm in model.named_parameters():
+        np.testing.assert_allclose(prm.grad.numpy(), want_g[k].numpy(), rtol=5e-4,
+                                   atol=5e-6, err_msg=k)
+
+
 def test_build_model_defaults_and_device(monkeypatch):
     """The JAX defaults (window 8, 4 heads, mlp_ratio 2, 2 blocks) and the
     card as the default device."""
@@ -222,3 +267,23 @@ def test_chip_smoke_swinir_config_is_the_yaml():
     assert chip_smoke.TILE96 == task["tile_size"]["x"] == task["tile_size"]["y"]
     assert chip_smoke.SWIN_TRAIN_TASK["lr"] == float(task["lr"])
     assert chip_smoke.SWIN_NW == 1728
+
+
+def test_chip_smoke_swinir_w16_config_is_the_yaml_but_its_window():
+    """chip_smoke's phases 22-24 run config/model/swinir.yaml with only
+    ``window_size`` changed, to 16 (set in code): 432 windows of 256 tokens
+    at SST-tiles-96's batch of 12."""
+    import sys
+    from pathlib import Path
+    import yaml
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    want = yaml.safe_load((root / "config/model/swinir.yaml").read_text())
+    got = dict(chip_smoke.SWIN16_CFG)
+    assert (got.pop("window_size"), want.pop("window_size")) == (16, 8)
+    assert got == want
+    assert chip_smoke.SWIN16_NW == 432

@@ -110,3 +110,32 @@ def test_wrappers_route_by_device():
         twa.window_attention(*meta, None, H)
     with pytest.raises(ValueError, match="cuda or cpu"):
         twa.window_attention_bwd(meta[0], *meta, None, H)
+
+
+def test_t256_twins_match_jax_kernel():
+    """16×16 windows (T = 256, the port's tiled kernels on the card), C = 64,
+    4 heads: the two windows of a 16×32 tile with its shifted-window mask.
+    The twins' forward and all six gradients through WindowAttentionFn
+    against the interpret-mode kernel and its VJP (one jitted call), under
+    the bars of the tests above."""
+    from sres_tpu_torch.models.swinir import shift_attn_mask
+    t, c, h = 256, 64, 4
+    rng = np.random.default_rng(6)
+    mk = lambda *s: rng.normal(scale=0.1, size=s).astype(np.float32)
+    args = (rng.normal(size=(2, t, c)).astype(np.float32), mk(c, 3 * c),
+            mk(1, 3 * c), mk(c, c), mk(1, c), mk(h, t, t))
+    mask = shift_attn_mask(16, 32, 16, 8)
+
+    @jax.jit
+    def jax_fwd_vjp(*a):
+        y, vjp = jax.vjp(lambda *p: fused_window_attention(*p, jnp.asarray(mask), h), *a)
+        return y, vjp(-jnp.sin(y))
+
+    want_y, want_g = jax_fwd_vjp(*(jnp.asarray(a) for a in args))
+    ts = [torch.from_numpy(a.copy()).requires_grad_() for a in args]
+    y = twa.WindowAttentionFn.apply(*ts, torch.from_numpy(mask), h)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), rtol=3e-5, atol=3e-5)
+    torch.cos(y).sum().backward()
+    for name, a, w in zip(("x", "wqkv", "bqkv", "wo", "bo", "bias"), ts, want_g):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=1e-3, atol=1e-4,
+                                   err_msg=name)
