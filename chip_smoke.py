@@ -31,8 +31,10 @@ Phases, one line each (every line carries the card's name and power limit):
    serving shape (1728 windows of 64 tokens, C 64, 4 heads), unshifted and
    shifted (the 144-window group mask), timed against the composition
    F.linear → F.scaled_dot_product_attention → F.linear;
-11. kernel (f), the window-attention backward, against its plain twin: dx
-   and the five weight gradients, unshifted and shifted, timed against the
+11. kernel (f), the window-attention backward (one design at every T: the
+   cluster kernel wattn_bwd_core_kernel, then wattn_bwd_proj_kernel and
+   fixed-order partial sums), against its plain twin at T = 64: dx and the
+   five weight gradients, unshifted and shifted, timed against the
    composition's autograd backward;
 12. SwinIR ×4 serving (config/model/swinir.yaml, bf16) through build_model →
    build_eval_step for three requests of 12 HR tiles of 1×384×384 (96×96
@@ -42,7 +44,8 @@ Phases, one line each (every line carries the card's name and power limit):
 13. SwinIR ×4 training: build_optimizer (Adam, lr 2e-4) → build_train_step
    at batch 12: one step's loss and gradients against the plain twins,
    three Adam steps on one batch (16 window_attention and 16
-   window_attention_bwd launches each; the loss must fall), ms/step,
+   window_attention_bwd launches each, none on the tiled forward; the loss
+   must fall), ms/step,
    trained tiles/s and peak memory against the composition attention, and
    a profile;
 14. the direct-conv group kernels of ``model.fused`` against their plain
@@ -85,19 +88,19 @@ Phases, one line each (every line carries the card's name and power limit):
    loss must fall; 49 ``wino_conv`` and 33 ``wino_conv_bwd`` launches
    each), ms/step, tiles/s, peak memory and idle share against the direct
    trunk, and a profile;
-22. the tiled window-attention kernels (T a multiple of 16 up to 256; T = 64
-   keeps phases 10-11's) against their twins at SwinIR-w16's serving shape
-   (432 windows of 256 tokens, C 64, 4 heads), unshifted and shifted (the
-   36-window group mask), forward and backward, timed against the
+22. the tiled window-attention forward (T a multiple of 16 up to 256; T = 64
+   keeps phase 10's kernel) and the backward against their twins at
+   SwinIR-w16's serving shape (432 windows of 256 tokens, C 64, 4 heads),
+   unshifted and shifted (the 36-window group mask), timed against the
    composition; and at T = 16 (8 windows) and T = 144 (6 windows, head
-   width 32), checked only;
+   width 32, a cluster whose last CTA holds 16 query rows), checked only;
 23. SwinIR ×4 with 16×16 windows (config/model/swinir.yaml + ``window_size:
    16``) served as phase 12 serves window 8: three requests of 12 HR tiles,
    16 tiled forward launches each and none on the T = 64 kernels, held
    against the plain twins, timed against the composition, profiled;
 24. the same model trained as phase 13: one step's loss and gradients
-   against the plain twins, three Adam steps (16 tiled forward and 16 tiled
-   backward launches each, none on the T = 64 kernels; the loss must
+   against the plain twins, three Adam steps (16 tiled forward and 16
+   backward launches each, none on the T = 64 forward; the loss must
    fall), ms/step, tiles/s, peak memory, the composition, a profile.
 
 Tolerances: f32 max|kernel − plain| ≤ 3e-5·max|plain| (group 1e-4, and
@@ -118,8 +121,12 @@ kernels ``bound_ms`` is that of the timed mode (the conv as conv1).
 The last three lines are a JSON object describing every kernel of the path
 (``launches`` counted over the three steps of each train slice, phases 9,
 13, 17, 21 and 24, EDSR's adding to RCAN's ``wino_conv`` and
-``wino_conv_bwd``; ``serve_launches`` over the three requests of phases 5,
-12, 16, 20 and 23; the chain's over the one probe launch of phase 18), the card's
+``wino_conv_bwd``; the window-attention backward listed once per main
+path: ``window_attention_bwd`` at T = 64 with phase 13's launches and
+phase 11's times, ``window_attention_bwd_t256`` with phase 24's and phase
+22's, each naming its CUDA kernels; ``serve_launches`` over the three
+requests of phases 5, 12, 16, 20 and 23; the chain's over the one probe
+launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
 """
@@ -964,17 +971,17 @@ def phase_wattn_tiled(dev, rng):
     twa.reset_launches()
     kern = {"window_attention_tiled": _wattn_fwd_case(
                 dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention_tiled"),
-            "window_attention_bwd_tiled": _wattn_bwd_case(
-                dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention_bwd_tiled")}
+            "window_attention_bwd_t256": _wattn_bwd_case(
+                dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention_bwd")}
     for ws, heads, nw, tile in ((4, 4, 8, (8, 16)), (12, 2, 6, (24, 36))):
         cfg = dict(SWIN16_CFG, window_size=ws, num_heads=heads)
         _wattn_fwd_case(dev, rng, cfg, nw, "22 kernel window_attention_tiled", tile, False)
-        _wattn_bwd_case(dev, rng, cfg, nw, "22 kernel window_attention_bwd_tiled", tile, False)
+        _wattn_bwd_case(dev, rng, cfg, nw, "22 kernel window_attention_bwd", tile, False)
     launches = dict(twa.LAUNCHES)
     say("22 kernel launches", launches=launches)
-    if launches["window_attention"] or launches["window_attention_bwd"] or not (
-            launches["window_attention_tiled"] and launches["window_attention_bwd_tiled"]):
-        raise CheckFailed(f"tiled T went to the T = 64 kernels or to none: {launches}")
+    if launches["window_attention"] or not (
+            launches["window_attention_tiled"] and launches["window_attention_bwd"]):
+        raise CheckFailed(f"tiled T went to the T = 64 forward or to no kernel: {launches}")
     return kern
 
 
@@ -1022,9 +1029,10 @@ def _windows(run, names, n):
 
 def _wattn_keys(cfg):
     """The LAUNCHES keys (forward, backward) of the kernels ``cfg``'s windows
-    run on: the T = 64 kernels for 8×8 windows, the tiled ones otherwise."""
-    return (("window_attention", "window_attention_bwd") if cfg["window_size"] == 8
-            else ("window_attention_tiled", "window_attention_bwd_tiled"))
+    run on: the T = 64 forward for 8×8 windows, the tiled one otherwise; the
+    backward's one design at every T."""
+    return ("window_attention" if cfg["window_size"] == 8 else "window_attention_tiled",
+            "window_attention_bwd")
 
 
 def phase_swin_serve(dev, seed, cfg=SWIN_CFG, label="12 swinir"):
@@ -2138,8 +2146,11 @@ def main() -> int:
         launches[k] += v
     launches.update(chain_launches)
     kern.update(phase_wattn_tiled(dev, rng))
-    serve_launches.update(phase_swin_serve(dev, args.seed, SWIN16_CFG, "23 swinir-w16"))
-    launches.update(phase_swin_train(dev, args.seed, SWIN16_CFG, "24 swinir-w16"))
+    w16 = phase_swin_serve(dev, args.seed, SWIN16_CFG, "23 swinir-w16")
+    serve_launches["window_attention_tiled"] = w16["window_attention_tiled"]
+    w16 = phase_swin_train(dev, args.seed, SWIN16_CFG, "24 swinir-w16")
+    launches["window_attention_tiled"] = w16["window_attention_tiled"]
+    launches["window_attention_bwd_t256"] = w16["window_attention_bwd"]
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -2153,16 +2164,23 @@ def main() -> int:
              "window_attention": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
              "window_attention_bwd": (wa_src, "sres_tpu/ops/pallas/window_attention.py:84"),
              "window_attention_tiled": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
-             "window_attention_bwd_tiled": (wa_src,
-                                            "sres_tpu/ops/pallas/window_attention.py:84"),
+             "window_attention_bwd_t256": (wa_src,
+                                           "sres_tpu/ops/pallas/window_attention.py:84"),
              "fgroup_conv": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
              "fgroup_ca": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
              "fgroup_wgrad": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
              "fgroup_ca_bwd": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
              "wino_chain": (src, "sres_tpu/ops/pallas/winograd_conv.py:339")}
+    # the CUDA kernels behind each window-attention entry
+    bwd = ["wattn_bwd_core_kernel", "wattn_bwd_proj_kernel", "sum_partials_kernel"]
+    cuda_kernels = {"window_attention": dict(t=64, kernels=["wattn_fwd_kernel"]),
+                    "window_attention_bwd": dict(t=64, kernels=bwd),
+                    "window_attention_tiled": dict(t=256, kernels=["wattn_tiled_fwd_kernel"]),
+                    "window_attention_bwd_t256": dict(t=256, kernels=bwd)}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
-             launches=launches[k], serve_launches=serve_launches.get(k, 0), **kern[k])
+             launches=launches[k], serve_launches=serve_launches.get(k, 0), **kern[k],
+             **cuda_kernels.get(k, {}))
         for k in where]}))
     print(f"card: {CARD}")
     print(json.dumps({"ok": True, "device": {

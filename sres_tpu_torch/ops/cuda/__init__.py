@@ -70,15 +70,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_wattn_tokens.argtypes = []
     lib.sres_wattn_fwd.restype = i
     lib.sres_wattn_fwd.argtypes = [vp] * 8 + [i] * 3 + [f] + [i] * 2 + [vp]
-    lib.sres_wattn_bwd.restype = i
-    lib.sres_wattn_bwd.argtypes = [vp] * 11 + [i] * 3 + [f] + [i] * 3 + [vp]
-    for name in ("sres_wattn_tile", "sres_wattn_max_tokens"):
+    for name in ("sres_wattn_tile", "sres_wattn_max_tokens", "sres_wattn_bwd_proj_rows"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
     lib.sres_wattn_tiled_fwd.restype = i
     lib.sres_wattn_tiled_fwd.argtypes = [vp] * 8 + [i] * 4 + [f] + [i] * 2 + [vp]
-    lib.sres_wattn_tiled_bwd.restype = i
-    lib.sres_wattn_tiled_bwd.argtypes = [vp] * 14 + [i] * 4 + [f] + [i] * 4 + [vp]
+    lib.sres_wattn_bwd_rows.restype = i
+    lib.sres_wattn_bwd_rows.argtypes = [i]
+    lib.sres_wattn_bwd.restype = i
+    lib.sres_wattn_bwd.argtypes = [vp] * 14 + [i] * 4 + [f] + [i] * 4 + [vp]
     lib.sres_fg_tiles.restype = i
     lib.sres_fg_tiles.argtypes = [i, i]
     lib.sres_fg_conv.restype = i

@@ -20,13 +20,15 @@ columns of qkv hold q, k, v in turn, head hh at [hh·hd, (hh+1)·hd) of each.
 Dispatch is by the device of ``x``: a CPU tensor goes to the ``*_plain``
 twin, a CUDA tensor to a hand-written kernel in ``ops/cuda/
 window_attention.cu``, and anything else raises; a kernel that fails to
-build or launch raises. On the card the kernel is picked by T: T = 64 (8×8
-windows) runs the whole-window kernels (``wattn_fwd_kernel``,
-``wattn_bwd_kernel``); any other multiple of 16 up to 256 (4×4, 12×12,
-16×16 windows) the tiled ones (``wattn_tiled_fwd_kernel``; backward
-``wattn_tiled_bwd_kernel`` + ``wattn_tiled_dbias_kernel``), which walk
-query tiles because a 16×16 window does not fit an SM; any other T raises
-``NotImplementedError``.
+build or launch raises. T = 64 or any multiple of 16 up to 256 (4×4 ...
+16×16 windows); any other T raises ``NotImplementedError``. The forward
+is picked by T: T = 64 (8×8 windows) runs ``wattn_fwd_kernel``, any other
+T ``wattn_tiled_fwd_kernel``, which walks query tiles because a 16×16
+window does not fit an SM. The backward is one design at every T:
+``wattn_bwd_core_kernel`` (a thread-block cluster per head and window
+range, the window's K and V shared through distributed shared memory)
+then ``wattn_bwd_proj_kernel`` (dx and dWqkv) and fixed-order partial
+sums.
 
 Rounding points (kernel and twin alike; every product accumulates in f32):
 the JAX kernel keeps qkv, p and the backward's do, ds in f32, but the
@@ -38,9 +40,10 @@ In f32 nothing rounds. The weight gradients stay f32 (the JAX VJP casts
 them to the weights' dtype, :229-232).
 
 ``LAUNCHES`` counts kernel launches per wrapper and mode (one per wrapper
-call that reached its kernel: ``window_attention`` and
-``window_attention_bwd`` at T = 64, the ``*_tiled`` keys at the other T),
-so a run can show that its main path went through the kernels, and which.
+call that reached its kernels: ``window_attention`` at T = 64,
+``window_attention_tiled`` at the other T, ``window_attention_bwd`` at
+every T), so a run can show that its main path went through the kernels,
+and which.
 """
 from __future__ import annotations
 
@@ -48,13 +51,18 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"window_attention": 0, "window_attention_bwd": 0,
-                            "window_attention_tiled": 0,
-                            "window_attention_bwd_tiled": 0}
+LAUNCHES: Dict[str, int] = {"window_attention": 0, "window_attention_tiled": 0,
+                            "window_attention_bwd": 0}
 
-# persistent blocks of the backward kernels: one per SM of an H100; each
-# owns one f32 partial of the weight gradients (at T = 64 of dbias too)
-_BWD_BLOCKS = 132
+# The backward's grid, a function of the shape alone (never of the card, so
+# that the bits do not depend on it): about this many core CTAs, one per SM
+# (the kernel fills one), a cluster of nq = ceil(T / rows) per (head, window
+# range). A cluster wants nq SMs of one GPC: an H100 holds at most 30
+# clusters of 4 such CTAs at once, so clusters take fewer CTAs, which keeps
+# SwinIR-w16's grid to one wave (28 clusters; 32 took two, 1.64x the time).
+# At most this many projection blocks, each owning one f32 partial of dWqkv.
+_BWD_CTAS, _BWD_CLUSTER_CTAS = 128, 120
+_PROJ_BLOCKS = 256
 
 
 def reset_launches() -> None:
@@ -142,8 +150,9 @@ def window_attention_bwd_plain(x: torch.Tensor, g: torch.Tensor,
 # ----------------------------------------------------------- CUDA wrappers
 def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
     """Everything the kernels take, checked, contiguous, on x's device:
-    weights in x.dtype, the rest f32; returns (ops, nm, tiled), ``tiled``
-    whether T goes to the tiled kernels."""
+    weights in x.dtype, the rest f32, each 16-byte aligned (the backward
+    copies rows 16 bytes at a time); returns (ops, nm, tiled), ``tiled``
+    whether T goes to the tiled forward."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3:
@@ -164,7 +173,7 @@ def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
     dev, dt, f32 = x.device, x.dtype, torch.float32
     want = [(wqkv, (c, 3 * c), dt), (bqkv, (3 * c,), f32), (wo, (c, c), dt),
             (bo, (c,), f32), (bias, (heads, t, t), f32)]
-    ops = [x.contiguous()]
+    ops = [_aligned(x.contiguous())]
     for a, shape, adt in want:
         # the bias vectors in any shape of their size, the rest exactly
         fits = (a.numel() == shape[0] if len(shape) == 1
@@ -172,17 +181,23 @@ def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
         if a.device != dev or not fits:
             raise ValueError(f"operand shaped {tuple(a.shape)} on {a.device}: "
                              f"kernel takes {shape} on {dev}")
-        ops.append(a.detach().to(adt).reshape(shape).contiguous())
+        ops.append(_aligned(a.detach().to(adt).reshape(shape).contiguous()))
     nm = 0
     if mask is not None:
         if mask.dim() != 3 or mask.shape[1:] != (t, t) or nw % mask.shape[0] \
                 or mask.device != dev:
             raise ValueError(f"mask must be (nm, {t}, {t}) on {dev} with nm "
                              f"dividing {nw}, got {tuple(mask.shape)}")
-        mask = mask.to(f32).contiguous()
+        mask = _aligned(mask.to(f32).contiguous())
         nm = mask.shape[0]
     ops.append(mask)
     return ops, nm, t != lib.sres_wattn_tokens()
+
+
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a`` (contiguous), copied if its storage offset breaks 16-byte
+    alignment."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
 
 
 def _ptr(a: Optional[torch.Tensor]) -> Optional[int]:
@@ -215,39 +230,34 @@ def _fwd_cuda(x, wqkv, bqkv, wo, bo, bias, mask, heads):
 def _bwd_cuda(x, g, wqkv, bqkv, wo, bo, bias, mask, heads):
     from sres_tpu_torch.ops import cuda
     lib = cuda.load()
-    ops, nm, tiled = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
+    ops, nm, _ = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
     x = ops[0]
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must be shaped like x on {x.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
-    g = g.to(x.dtype).contiguous()
+    g = _aligned(g.to(x.dtype).contiguous())
     nw, t, c = x.shape
-    nblk = min(nw, _BWD_BLOCKS)
+    bf16 = int(x.dtype == torch.bfloat16)
+    nq = -(-t // lib.sres_wattn_bwd_rows(bf16))
+    ctas = _BWD_CTAS if nq == 1 else _BWD_CLUSTER_CTAS
+    nsplit = max(1, min(nw, ctas // (heads * nq)))
+    nproj = min(-(-nw * t // lib.sres_wattn_bwd_proj_rows()), _PROJ_BLOCKS)
     sizes = [3 * c * c, 3 * c, c * c, c, heads * t * t]
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    empty = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=x.device)
-    ptrs = [_ptr(a) for a in ops] + [g.data_ptr(), dx.data_ptr()]
-    tail = (int(x.dtype == torch.bfloat16), x.device.index or 0, _stream(x.device))
-    if tiled:
-        # the weight partials without dbias; dbias summed per (16 query rows,
-        # head) by its own kernel over nsplit window splits, so that the
-        # card's SMs are about full
-        nsplit = max(1, min(nw, _BWD_BLOCKS // (heads * t // lib.sres_wattn_tile())))
-        stash, scratch = empty(nw, t, 4 * c, dt=x.dtype), empty(nblk, t, 3 * c, dt=x.dtype)
-        part, dbpart = empty(nblk, sum(sizes[:4])), empty(nsplit, heads, t, t)
-        err = lib.sres_wattn_tiled_bwd(
-            *ptrs, stash.data_ptr(), scratch.data_ptr(), part.data_ptr(),
-            dbpart.data_ptr(), grads.data_ptr(), nw, t, nm, heads, _scale(c, heads),
-            nblk, nsplit, *tail)
-        key = "window_attention_bwd_tiled"
-    else:
-        part = empty(nblk, sum(sizes))
-        err = lib.sres_wattn_bwd(*ptrs, part.data_ptr(), grads.data_ptr(), nw, nm,
-                                 heads, _scale(c, heads), nblk, *tail)
-        key = "window_attention_bwd"
-    cuda.check(err, f"{key} kernel")
-    LAUNCHES[key] += 1
+    dqkv = torch.empty(nw, t, 3 * c, dtype=x.dtype, device=x.device)
+    # f32 partials: dWqkv per projection block, [dbqkv | dWo | dbo] per
+    # (query tile, window range), dbias per window range
+    psizes = [nproj * sizes[0], nq * nsplit * sum(sizes[1:4]), nsplit * sizes[4]]
+    part_w, part_c, part_b = torch.empty(sum(psizes), dtype=torch.float32,
+                                         device=x.device).split(psizes)
+    err = lib.sres_wattn_bwd(
+        *[_ptr(a) for a in ops], g.data_ptr(), dx.data_ptr(), dqkv.data_ptr(),
+        part_w.data_ptr(), part_c.data_ptr(), part_b.data_ptr(), grads.data_ptr(),
+        nw, t, nm, heads, _scale(c, heads), nsplit, nproj, bf16,
+        x.device.index or 0, _stream(x.device))
+    cuda.check(err, "window_attention_bwd kernels")
+    LAUNCHES["window_attention_bwd"] += 1
     dwqkv, dbqkv, dwo, dbo, dbias = grads.split(sizes)
     return (dx, dwqkv.view(c, 3 * c), dbqkv, dwo.view(c, c), dbo,
             dbias.view(heads, t, t))

@@ -268,7 +268,7 @@ def _tiled_check(dev, t, nw, tile, heads, seed):
                 run(twa.window_attention_bwd, torch.bfloat16),
                 run(twa.window_attention_bwd_plain, torch.bfloat16))
     want = dict(before, window_attention_tiled=before["window_attention_tiled"] + 2,
-                window_attention_bwd_tiled=before["window_attention_bwd_tiled"] + 2)
+                window_attention_bwd=before["window_attention_bwd"] + 2)
     assert twa.LAUNCHES == want
 
 
@@ -291,10 +291,37 @@ def test_window_attention_other_tiled_t_matches_twin(dev, t, nw, tile, heads):
 
 
 @pytest.mark.cuda
-def test_window_attention_t256_bwd_is_deterministic(dev):
-    """Two backward runs give the same bits: fixed-order partial sums."""
+@pytest.mark.parametrize("t,heads,nw,tile", [
+    (16, 4, 8, (8, 16)), (16, 2, 6, None),
+    (64, 4, 433, (8, 8)), (64, 2, 6, None), (64, 2, 144, (96, 96)),
+    (144, 2, 6, (24, 36)), (144, 4, 433, (12, 12)), (144, 4, 6, None),
+    (256, 2, 6, None), (256, 4, 433, (16, 16)), (256, 2, 36, (96, 96))])
+def test_window_attention_bwd_every_t_matches_twin(dev, t, heads, nw, tile):
+    """The backward (one cluster design at every T) against its twin, f32
+    and bf16: head widths 16 and 32, shifted and not, window counts that the
+    window ranges do not divide evenly (6, and 433 windows under a
+    one-window mask, nm = 1), and T = 144, whose cluster's last CTA holds
+    16 query rows (48 in f32)."""
     from sres_tpu_torch.ops import window_attention as twa
-    (x, *ws), mask = _tiled_inputs(dev, 256, 432, (96, 96), 4, 52)
+    (x, *ws), mask = _tiled_inputs(dev, t, nw, tile, heads, 56 + t)
+    g = _t(np.random.default_rng(57 + t), tuple(x.shape), dev)
+    launches = twa.LAUNCHES["window_attention_bwd"]
+    run = lambda fn, dt: fn(x.to(dt), g.to(dt), *ws, mask, heads)
+    _check_many(f"bwd t={t} heads={heads} nw={nw} tile={tile}",
+                run(twa.window_attention_bwd, torch.float32),
+                run(twa.window_attention_bwd_plain, torch.float32),
+                run(twa.window_attention_bwd, torch.bfloat16),
+                run(twa.window_attention_bwd_plain, torch.bfloat16))
+    assert twa.LAUNCHES["window_attention_bwd"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,nw,tile", [(64, 1728, (96, 96)), (256, 432, (96, 96))])
+def test_window_attention_t256_bwd_is_deterministic(dev, t, nw, tile):
+    """Two backward runs give the same bits, at SwinIR's T = 64 and
+    SwinIR-w16's T = 256 shapes: fixed-order partial sums, no atomics."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _tiled_inputs(dev, t, nw, tile, 4, 52)
     g = _t(np.random.default_rng(53), tuple(x.shape), dev).bfloat16()
     a = twa.window_attention_bwd(x.bfloat16(), g, *ws, mask, 4)
     b = twa.window_attention_bwd(x.bfloat16(), g, *ws, mask, 4)
@@ -303,11 +330,12 @@ def test_window_attention_t256_bwd_is_deterministic(dev):
 
 
 @pytest.mark.cuda
-def test_window_attention_t256_fn_gradients_match_twin(dev):
+@pytest.mark.parametrize("t,tile", [(64, (16, 16)), (256, (32, 32))])
+def test_window_attention_t256_fn_gradients_match_twin(dev, t, tile):
     """WindowAttentionFn on the kernels against the same Function on the
-    twins (f32): every gradient within 1e-4·max."""
+    twins (f32), at T = 64 and T = 256: every gradient within 1e-4·max."""
     from sres_tpu_torch.ops import window_attention as twa
-    (x, *ws), mask = _tiled_inputs(dev, 256, 8, (32, 32), 4, 54)
+    (x, *ws), mask = _tiled_inputs(dev, t, 8, tile, 4, 54)
     grads = []
     for plain in (False, True):
         leaves = [a.detach().clone().requires_grad_() for a in (x, *ws)]
