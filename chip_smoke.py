@@ -16,9 +16,14 @@ Phases, one line each (every line carries the card's name and power limit):
    HR tiles at 1×192×192, compared with the same model on the plain twins,
    timed against the plain twins and the direct (cuDNN) trunk, and profiled
    (device time by kernel for one request of the kernel and direct paths);
-6. kernel (c), the conv backward, against its plain twin at (72, 64, 48,
-   48), m ∈ {2, 4}, in its four modes: per-conv adjoint, ReLU gate, CA
-   prologue into an f32 dx, ReLU gate accumulated into an f32 buffer;
+6. kernel (c), the conv backward (``wino_bwd_dx_kernel``,
+   ``wino_bwd_du_kernel``, ``wino_bwd_sum_kernel``), against its plain twin
+   at (72, 64, 48, 48), m ∈ {2, 4}, in its five modes: per-conv adjoint (g
+   in the activation dtype, or f32 as EDSR's conv2 passes it), ReLU gate,
+   CA prologue into an f32 dx, ReLU gate accumulated into an f32 buffer;
+   two calls must give the same bits; each mode a training step calls
+   (``relu``, ``ca``, ``accum``, ``f32g``) timed against its own bound and
+   cuDNN's ``convolution_backward``, and a device-time profile of one call;
 7. kernel (d), the channel-attention backward, against its plain twin;
 8. one residual group's backward (20 RCABs + trailing conv, m=4, b72): the
    gradients of sum(y·G) and the stash, kernels against plain twins;
@@ -124,7 +129,8 @@ The last three lines are a JSON object describing every kernel of the path
 ``wino_conv_bwd``; the window-attention backward listed once per main
 path: ``window_attention_bwd`` at T = 64 with phase 13's launches and
 phase 11's times, ``window_attention_bwd_t256`` with phase 24's and phase
-22's, each naming its CUDA kernels; ``serve_launches`` over the three
+22's, each naming its CUDA kernels; ``wino_conv_bwd`` naming its three
+kernels, with each mode's times in ``modes``; ``serve_launches`` over the three
 requests of phases 5, 12, 16, 20 and 23; the chain's over the one probe
 launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
@@ -500,6 +506,15 @@ def _rand(rng, dev, shape, scale=1.0, shift=0.0):
     return a.contiguous(memory_format=torch.channels_last) if a.dim() == 4 else a
 
 
+# the conv adjoint's modes: (cotangent dtype is f32, ReLU gate, CA prologue,
+# added into an f32 dprev); "adjoint" takes g in the activation dtype
+BWD_MODES = {"adjoint": (False, False, False, False), "f32g": (True, False, False, False),
+             "relu": (False, True, False, False), "ca": (True, False, True, False),
+             "accum": (True, True, False, True)}
+# the CUDA kernels behind one wino_conv_bwd call
+WINO_BWD_KERNELS = ["wino_bwd_dx_kernel", "wino_bwd_du_kernel", "wino_bwd_sum_kernel"]
+
+
 def phase_conv_bwd(dev, rng):
     import torch
     from sres_tpu_torch.ops.winograd import transform_weights
@@ -513,21 +528,25 @@ def phase_conv_bwd(dev, rng):
     b = torch.from_numpy(rng.uniform(-bound, bound, c).astype(np.float32)).to(dev)
     gate, ds = _rand(rng, dev, (BATCH, c)).sigmoid(), _rand(rng, dev, (BATCH, c), 1e-3)
     worst, ys = 0.0, {}
+
+    def call(fn, mode, m, u, dt):
+        g32, relu, ca, acc = BWD_MODES[mode]
+        kw = {}
+        if relu:
+            kw["y"] = ys[m].to(dt)
+        if ca:
+            kw.update(gate=gate, ds=ds)
+        if acc:
+            kw["dprev"] = prev.clone()
+        return fn(g if g32 else g.to(dt), x.to(dt), u, m, **kw)
+
     for m in (2, 4):
         u = transform_weights(w, m)
         ys[m] = wino_conv_plain(x, u, b, m, relu=True)      # a ReLU output to gate by
-        for mode in ("adjoint", "relu", "ca", "accum"):
-            def run(fn, dt):
-                kw = {}
-                if mode in ("relu", "accum"):
-                    kw["y"] = ys[m].to(dt)
-                if mode == "ca":
-                    kw.update(gate=gate, ds=ds)
-                if mode == "accum":
-                    kw["dprev"] = prev.clone()
-                return fn(g if mode in ("ca", "accum") else g.to(dt), x.to(dt), u, m, **kw)
-            outs = [run(fn, dt) for fn, dt in ((wino_conv_bwd, f32), (wino_conv_bwd_plain, f32),
-                                               (wino_conv_bwd, bf16), (wino_conv_bwd_plain, bf16))]
+        for mode in BWD_MODES:
+            outs = [call(fn, mode, m, u, dt) for fn, dt in (
+                (wino_conv_bwd, f32), (wino_conv_bwd_plain, f32),
+                (wino_conv_bwd, bf16), (wino_conv_bwd_plain, bf16))]
             torch.cuda.synchronize()
             for i, name in enumerate(("dx", "dU", "db")):
                 out = check_pair(f"m{m}_{mode}_{name}", *(o[i] for o in outs))
@@ -536,22 +555,42 @@ def phase_conv_bwd(dev, rng):
                     worst = max(worst, out["bf16_vs_plain_abs"])
             del outs
     u4 = transform_weights(w, 4).bfloat16()
-    xb, gb, yb, wb = x.bfloat16(), g.bfloat16(), ys[4].bfloat16(), w.bfloat16()
-    ms = time_ms(lambda: wino_conv_bwd(gb, xb, u4, 4, y=yb))
-    plain_ms = time_ms(lambda: wino_conv_bwd_plain(gb, xb, u4, 4, y=yb), iters=3, warmup=1)
-    ca_ms = time_ms(lambda: wino_conv_bwd(g, xb, u4, 4, gate=gate, ds=ds))
-    acc = prev.clone()
-    accum_ms = time_ms(lambda: wino_conv_bwd(g, xb, u4, 4, y=yb, dprev=acc))
+    xb, gb, wb = x.bfloat16(), g.bfloat16(), w.bfloat16()
+    # two calls give the same bits (fixed-order sums, no atomics)
+    d1, d2 = (call(wino_conv_bwd, "accum", 4, u4, bf16) for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(torch.equal(p1, p2) for p1, p2 in zip(d1, d2)):
+        raise CheckFailed("wino_conv_bwd: two calls gave different bits")
+    del d1, d2
     library_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
         gb, xb, wb, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, True]))
-    # g, x, y read and dx written (bf16); U read (bf16); dU and db written (f32)
-    nbytes = 4 * 2 * xb.numel() + 2 * u4.numel() + 4 * (u4.numel() + c)
-    bound = bound_ms(nbytes, 2 * tap_flops(SHAPE, 4))      # dV and dU products
-    say("6 kernel wino_conv_bwd timing", shape=SHAPE, m=4, dtype="bf16", mode="relu",
-        ms=ms, plain_ms=plain_ms, ca_mode_ms=ca_ms, accum_mode_ms=accum_ms,
-        bound_ms=bound, library_ms_cudnn_convolution_backward=library_ms)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=library_ms)
+    n = xb.numel()
+    flops = 2 * tap_flops(SHAPE, 4)                         # dV and dU products
+    # bytes per element of the activation tensors: each input read once,
+    # each output written once (bf16 2, f32 4); plus U read (bf16) and dU,
+    # db written (f32)
+    per_elem = {"adjoint": 2 + 2 + 2, "f32g": 4 + 2 + 4, "relu": 2 + 2 + 2 + 2,
+                "ca": 4 + 2 + 4, "accum": 4 + 2 + 2 + 4 + 4}
+    modes = {}
+    acc, yb = prev.clone(), ys[4].bfloat16()
+    # operands converted once, outside the timed calls
+    timed = {"relu": (gb, dict(y=yb)), "ca": (g, dict(gate=gate, ds=ds)),
+             "accum": (g, dict(y=yb, dprev=acc)), "f32g": (g, {})}
+    for mode, (gg, kw) in timed.items():
+        nbytes = per_elem[mode] * n + 2 * u4.numel() + 4 * (u4.numel() + c)
+        ms = time_ms(lambda: wino_conv_bwd(gg, xb, u4, 4, **kw))
+        modes[mode] = dict(ms=ms, bound_ms=bound_ms(nbytes, flops),
+                           bound_by=bound_by(nbytes, flops), library_ms=library_ms)
+    plain_ms = time_ms(lambda: wino_conv_bwd_plain(gb, xb, u4, 4, y=yb), iters=3, warmup=1)
+    say("6 kernel wino_conv_bwd timing", shape=SHAPE, m=4, dtype="bf16", kernels=WINO_BWD_KERNELS,
+        plain_ms_relu=plain_ms, library_ms_cudnn_convolution_backward=library_ms,
+        deterministic=True, **{f"{k}_{q}": v for k, d in modes.items() for q, v in d.items()})
+    profile_device("6 kernel wino_conv_bwd profile relu",
+                   lambda: wino_conv_bwd(gb, xb, u4, 4, y=yb))
+    head = modes["relu"]
+    return dict(max_abs_err=worst, ms=head["ms"], plain_ms=plain_ms, bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=library_ms, kernels=WINO_BWD_KERNELS,
+                modes=modes)
 
 
 def phase_ca_bwd(dev, rng):

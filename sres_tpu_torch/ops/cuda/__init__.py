@@ -60,10 +60,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_ca_skip.restype = i
     lib.sres_ca_skip.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                  i, i, i, i, i, i, i, vp]
-    lib.sres_wino_bwd_tiles.restype = i
-    lib.sres_wino_bwd_tiles.argtypes = [i]
+    lib.sres_wino_bwd_scratch.restype = i
+    lib.sres_wino_bwd_scratch.argtypes = [i] * 5
     lib.sres_wino_conv_bwd.restype = i
-    lib.sres_wino_conv_bwd.argtypes = [vp] * 14 + [i] * 9 + [vp]
+    lib.sres_wino_conv_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
     lib.sres_ca_skip_bwd.restype = i
     lib.sres_ca_skip_bwd.argtypes = [vp] * 14 + [i] * 6 + [vp]
     lib.sres_wattn_tokens.restype = i

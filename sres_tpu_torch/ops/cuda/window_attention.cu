@@ -383,53 +383,6 @@ int launch_tiled_fwd(const void* x, const void* wqkv, const float* bqkv, const v
 // The f32 mode (exact checks) keeps the same data layout and thread
 // ownership, and computes each accumulator element with FMAs in k order.
 
-// ------------------------------------------------------------ PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  if constexpr (kTrans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p))
-                 : "memory");
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_u32(p))
-                 : "memory");
-}
-
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
-  if constexpr (kTrans)
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(smem_u32(p))
-                 : "memory");
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-                 : "=r"(r[0]), "=r"(r[1])
-                 : "r"(smem_u32(p))
-                 : "memory");
-}
-
 // rows x cols elements (cols * sizeof(E) a multiple of 16) from global
 // memory (row stride gld) to shared memory (row stride sld), 16 bytes a copy
 template <typename E>

@@ -9,352 +9,668 @@
 //       accumulating dx into an f32 cotangent, and the CA backward.
 // The reversed RCAB loop that composes them is ops/winograd_conv.py.
 //
-// (K1) wino_conv_bwd, four launches per call:
-//   1. wino_bwd_tile_kernel: per block of tiles, the output cotangent's
-//      prologue (CA scaling / ReLU gate, db partial), dM = A-adjoint of it
-//      (two stages, each rounded to T), V recomputed from x (as the forward),
-//      dV = dM . U^T (tensor cores for bf16), rounded to T, and the per-tile
-//      B-adjoint dd = BT^T dV BT (first stage rounded to T, second in f32).
-//      It writes dM and V (T) for the weight gradient and dd (f32) per tile.
-//   2. wino_dx_gather_kernel: dx of each input pixel = the sum, in a fixed
-//      order, of the dd entries of the (at most 2 x 2) tiles whose patch
-//      covers it; entries that fall in the zero padding are never read. So
-//      no two blocks write one pixel, and the result does not depend on the
-//      schedule. Rounds to T once, writes f32, or adds into an f32 buffer.
-//   3. wino_du_kernel: dU[t] = V[t]^T . dM[t], the sum over all tiles of the
-//      batch, split over (tap, K-slice) blocks, each writing one partial.
-//   4. sum_partials_kernel: the partials summed in a fixed order (dU, db).
-// On the TPU the grid ran in order and dU sat in one resident output block;
-// here blocks run in parallel, so the sum is a deterministic two-pass
-// reduction, with no atomics.
+// (K1) wino_conv_bwd, three launches per call. Per tile, the cotangent's
+// prologue (CA scaling, ReLU gate) and its A-adjoint dM (both stages rounded
+// to T) feed two products: dV = dM . U^T, whose B-adjoint dd (first stage
+// s2 rounded to T, second in f32) is overlap-added into dx, and dU = V^T . dM
+// summed over the batch, V being the input transform of x. No tensor of
+// tiles x n^2 x 64 passes through device memory:
+//   1. wino_bwd_dx_kernel: a thread-block cluster per (image, column strip),
+//      one CTA per band of tile rows, walking down its band in passes of up
+//      to 32 tiles (two tile rows at 48 x 48, m = 4). A pass puts dM in
+//      shared memory. Warp w runs dV for 16 tiles x 8 channels on mma.sync
+//      m16n8k16 (A by ldmatrix; the U^T fragments straight from L2, four
+//      taps ahead in registers, so the tap loop has no barrier of its own),
+//      one tap row (n taps) at a time in registers; after each row a barrier,
+//      and the first stage of the B-adjoint writes s2 over the row's dM.
+//      Then, in rounds of channels, dd is overlap-added into an f32 band in
+//      shared memory in four phases, by tile-row and tile-column parity, so
+//      no two threads add to one element at once and each element sums in
+//      one fixed order. Finished pixel rows are written once: rounded once
+//      to T, or written or added in f32. Two pixel rows lie under two tile
+//      rows: inside a band the lower pass adds to the rows carried from the
+//      upper one; across bands each CTA keeps its top two rows and its
+//      carried two, and after a cluster barrier finishes the row it owns with
+//      its neighbour's through distributed shared memory. Each such pixel is
+//      (upper tile row's sum) + (lower tile row's sum), whichever CTA adds
+//      them. An image too wide for the band is cut into column strips, each
+//      recomputing the tile column beside it on either side. The prologue
+//      gives one db partial per CTA.
+//   2. wino_bwd_du_kernel: a cluster of four CTAs per range of tiles, CTA q
+//      holding dU for input channels 16 q.. of every tap in mma accumulators.
+//      A pass of 32 tiles: each CTA recomputes V of its 16 input channels
+//      from x and dM of output channels 16 q.. from g (the prologue
+//      included), sends that quarter of dM to the three other CTAs by bulk
+//      copy (cp.async.bulk into their shared memory, completing on their
+//      mbarriers), and runs V^T . dM on mma.sync. One partial per range.
+//   3. wino_bwd_sum_kernel: the dU and db partials summed in a fixed order.
+// No atomics, so two runs give the same bits. f32 activations run the same
+// layout and thread ownership with FMAs in place of mma (U^T read from L2),
+// 16 tiles a pass.
 //
-// What bounds it on this card: at 72x64x48x48, m=4, the dV and dU products
-// are 3.1 GFLOP each (about 6 us at the bf16 tensor-core peak), while the
-// call must read g, x (and y) and write dx: 85-130 MB, 25-39 us at 3.35 TB/s.
-// It is memory-bound. This first design is not: it moves dM, V (T) and dd
-// (f32) through device memory, about 380 MB more at bf16. Keeping them on
-// chip (dU partials per tap in registers, the overlap-add inside a block
-// that owns whole tile rows) is later work.
-//
+// What bounds it on this card: at 72x64x48x48, m=4, the call must read g,
+// y, x and write dx (and read dprev): 85-170 MB by mode, 25-51 us at 3.35
+// TB/s; the two products are 6.2 GFLOP, 6 us at the bf16 tensor-core peak.
+// It is bound by bytes, and runs at 9-14x that bound. Measured on an H100
+// with clock counters per phase (PERF.md, section 6): a CTA fills an SM (shared
+// memory), so each pass is a chain of latencies at 16 warps an SM (the
+// prologue's loads, the tap loop's L2 fragment loads, the overlap-add's
+// shared-memory round trips), and the dx kernel runs two waves; in the dU
+// kernel the recompute of V and dM takes longer than the exchange of dM
+// and the products together.
+
 // (K2) ca_skip_bwd, three launches: per-(sample, chunk) partial sums of c2
 // and of da * c2 (split as the forward's pooling), one block per sample for
 // the 32-wide MLP backward (gate, ds = dz1 . W1 / npix), and one small
 // kernel summing the weight gradients over samples. Bound: one read of da
 // (f32) and c2, 63 MB at bf16, 19 us.
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
 #include "wino_common.cuh"
 
 namespace {
 
-// ------------------------------------------------- shared-memory layouts
-// bf16: [tap][tile][ch] with 72-element rows (the forward's mma layout);
-// f32: [tap][ch][tile] with a padded tile row, 8 tiles per block.
-template <typename T> struct Bwd;
-template <> struct Bwd<bf16> {
-  static constexpr int TB = kMmaTiles;
-  static constexpr int kPerTap = kMmaTiles * kMmaRow;
-  __device__ static int at(int tap, int tile, int ch) {
-    return (tap * TB + tile) * kMmaRow + ch;
-  }
+namespace cg = cooperative_groups;
+
+// ------------------------------------------------------------- geometry
+// Per activation type: the threads of a dx or dU CTA (dx: warp w owns
+// channels 8 (w % 8).. of tiles 16 (w / 8)..) and the tiles a pass holds at
+// most (the same bytes of dM either way).
+template <typename T> struct Cfg;
+template <> struct Cfg<bf16> {
+  static constexpr int kThr = 512;
+  static constexpr int TB = 32;
 };
-template <> struct Bwd<float> {
-  static constexpr int TB = 8;
-  static constexpr int kRow = TB + 1;
-  static constexpr int kPerTap = kC * kRow;
-  __device__ static int at(int tap, int tile, int ch) {
-    return (tap * kC + ch) * kRow + tile;
-  }
+template <> struct Cfg<float> {
+  static constexpr int kThr = 256;
+  static constexpr int TB = 16;
 };
 
-// dV[t] (tiles x ci) = dM[t] (tiles x co) . U[t]^T, rounded to T, for all
-// taps. bf16: mma.sync m16n8k16, warp nb computes ci 8*nb..+7; ut holds
-// U^T in the forward's B-fragment order. f32: FMA, thread (tile j, ci pair).
-template <typename T, int N2>
-struct DvProducts;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may opt in to
+constexpr int kDuBlocks = 4;      // channel blocks of 16: the dU kernel's cluster
+constexpr int kDuRanges = 28;     // tile ranges at most: 28 clusters of 4 fit an H100 at once
+constexpr int kPrefetch = 4;      // U taps the dx kernel's warps load ahead
 
-template <int N2>
-struct DvProducts<bf16, N2> {
-  __device__ static void run(const bf16* dms, bf16* dvs, const void* ut, int tid) {
-    const uint2* ufrag = static_cast<const uint2*>(ut);
-    const int nb = tid >> 5, lane = tid & 31, gq = lane >> 2, q4 = lane & 3;
-    for (int t = 0; t < N2; ++t) {
-      const bf16* va = dms + ((size_t)t * kMmaTiles + gq) * kMmaRow + 2 * q4;
-      const uint2* ub = ufrag + ((size_t)(t * 8 + nb) * 4) * 32 + lane;
-      float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(va + 16 * ks);
-        a[1] = *reinterpret_cast<const uint32_t*>(va + 8 * kMmaRow + 16 * ks);
-        a[2] = *reinterpret_cast<const uint32_t*>(va + 16 * ks + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(va + 8 * kMmaRow + 16 * ks + 8);
-        const uint2 b = __ldg(ub + ks * 32);
-        mma_bf16(c, a, b.x, b.y);
+// f32 stride of one pixel in the overlap-add band of cg channels: + 2 (m = 4)
+// or + 4 (m = 2), so the two tiles of a warp's 16-channel halves, 2 M pixels
+// apart, add into distinct banks
+template <int M>
+__host__ __device__ constexpr int band_stride(int cg) {
+  return cg + (M == 4 ? 2 : 4);
+}
+
+// Element (row, col) of a [rows][64] array whose 16-byte chunks are
+// XOR-swizzled by row % 8: ldmatrix over 8 rows and reads of one column by
+// 8 rows are conflict-free.
+template <typename T>
+__device__ __forceinline__ int sw64(int row, int col) {
+  constexpr int CE = 16 / sizeof(T);
+  return row * kC + (((col / CE) ^ (row & 7)) * CE) + col % CE;
+}
+
+// Element (row, col) of a [rows][16] array: bf16 rows are two chunks,
+// swapped on rows 4-7 of every 8 (conflict-free ldmatrix.trans).
+template <typename T>
+__device__ __forceinline__ int sw16(int row, int col) {
+  if constexpr (sizeof(T) == 2)
+    return row * 16 + (((col >> 3) ^ ((row >> 2) & 1)) << 3) + (col & 7);
+  return row * 16 + col;
+}
+
+// Layout of the dx kernel: column strips, tile rows a pass, channels a
+// round of the overlap-add, bands (the cluster), shared-memory offsets.
+// Computed on the host from the shape.
+struct DxGeo {
+  int ns;       // column strips
+  int kr;       // tile rows a pass holds
+  int tbs;      // dM rows a tap: the pass's tiles, rounded up to 8
+  int cg;       // channels of one round of the overlap-add
+  int nb;       // bands of tile rows per (image, strip): the cluster size
+  int cols;     // pixel columns of the widest strip
+  int band;     // byte offset of the overlap-add band
+  int rows;     // byte offset of the kept rows (top two, carried two)
+  int red;      // byte offset of the db reduction
+  int smem;     // bytes in all; 0 if no layout fits
+};
+
+template <typename T, int M>
+DxGeo dx_geometry(int h, int w) {
+  constexpr int N2 = (M + 2) * (M + 2), TB = Cfg<T>::TB;
+  const int th = h / M, tw = w / M;
+  DxGeo g = {};
+  for (int ns = 1; ns <= tw && g.smem == 0; ++ns) {
+    const int s = (tw + ns - 1) / ns, cs = std::min(tw, s + (ns > 1 ? 2 : 0));
+    if (cs > TB) continue;
+    for (int kr = std::min(TB / cs, th); kr >= 1 && g.smem == 0; --kr) {
+      for (int cg = kC; cg >= 16 && g.smem == 0; cg /= 2) {
+        const int tbs = (kr * cs + 7) / 8 * 8, cols = M * s;
+        const int dm = tbs * N2 * kC * (int)sizeof(T);
+        const int band = (M * kr + 2) * cols * band_stride<M>(cg) * 4;
+        const int keep = 4 * cols * kC * 4;
+        const int total = dm + band + keep + Cfg<T>::kThr * 4;
+        if (total <= kMaxSmem)
+          g = DxGeo{ns, kr, tbs, cg, 0, cols, dm, dm + band, dm + band + keep, total};
       }
-      const int ci = 8 * nb + 2 * q4;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        dvs[Bwd<bf16>::at(t, gq + 8 * (r >> 1), ci + (r & 1))] = __float2bfloat16_rn(c[r]);
     }
   }
+  if (g.smem) g.nb = std::max(1, std::min({8, th, (th + 2 * g.kr - 1) / (2 * g.kr)}));
+  return g;
+}
+
+// dU kernel: tile ranges (one cluster of kDuBlocks CTAs each)
+int du_ranges(int ntiles, int tb) { return std::max(1, std::min(kDuRanges, ntiles / tb)); }
+
+// A zero the compiler cannot see through. Added to a pass's base pointers,
+// it keeps addresses that do not change from pass to pass from being
+// computed once and held, spilled, across the pass loop.
+__device__ __forceinline__ int opaque_zero() {
+  int z = 0;
+  asm volatile("" : "+r"(z));
+  return z;
+}
+
+// ------------------------------------------------- the cotangent of a tile
+// One (tile, channel) of the cotangent: its raw values (g, and y where the
+// ReLU gate applies), loaded all at once so that the loads of several
+// tiles are in flight together, then the prologue (CA scaling g * gate +
+// ds, ReLU gate y > 0), its sum over the tile's pixels (for db), and dM =
+// the A-adjoint of it, both stages rounded to T. A tile that is not valid
+// reads tile (0, 0) of image 0 and gives zeros.
+template <int M>
+struct CotIn {
+  float g[M][M], y[M][M], ga, gd;
 };
 
-template <int N2>
-struct DvProducts<float, N2> {
-  __device__ static void run(const float* dms, float* dvs, const void* ut, int tid) {
-    const float* uts = static_cast<const float*>(ut);       // [t][co][ci]
-    const int j = tid / 32, ci = 2 * (tid % 32);
-    for (int t = 0; t < N2; ++t) {
-      const float* ut_t = uts + (size_t)t * kC * kC + ci;
-      float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll 8
-      for (int co = 0; co < kC; ++co) {
-        const float d = dms[Bwd<float>::at(t, j, co)];
-        const float2 uu = __ldg(reinterpret_cast<const float2*>(ut_t + co * kC));
-        a0 = fmaf(d, uu.x, a0);
-        a1 = fmaf(d, uu.y, a1);
-      }
-      dvs[Bwd<float>::at(t, j, ci)] = a0;
-      dvs[Bwd<float>::at(t, j, ci + 1)] = a1;
-    }
-  }
-};
-
-// ------------------------------------------------ (K1.1) per-tile kernel
-// T: activation type (x, y, U, V, dM); G: type of the cotangent g.
-// gate/ds (nimg, 64) f32, or null; y (post-ReLU output) or null.
 template <typename T, typename G, int M>
-__global__ void __launch_bounds__(kThreads)
-wino_bwd_tile_kernel(const G* __restrict__ g, const T* __restrict__ x,
-                     const T* __restrict__ y, const void* __restrict__ ut,
-                     const float* __restrict__ gate, const float* __restrict__ ds,
-                     T* __restrict__ vbuf, T* __restrict__ dmbuf,
-                     float* __restrict__ ddbuf, float* __restrict__ dbpart,
-                     int nimg, int h, int w) {
-  constexpr int N = M + 2, N2 = N * N, TB = Bwd<T>::TB;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* dms = reinterpret_cast<T*>(smem_raw);                 // dM, Bwd<T> layout
-  T* dvs = dms + (size_t)N2 * Bwd<T>::kPerTap;             // dV
-  __shared__ float dbred[kThreads];
-  const int th = h / M, tw = w / M, ntiles = nimg * th * tw;
-  const int tile0 = blockIdx.x * TB, tid = threadIdx.x;
+__device__ __forceinline__ void cot_load(CotIn<M>& in, const G* __restrict__ g,
+                                         const T* __restrict__ y,
+                                         const float* __restrict__ gate,
+                                         const float* __restrict__ ds, bool valid, int im,
+                                         int rr, int cc, int h, int w, int ch) {
+  if (!valid) im = rr = cc = 0;
+  const size_t base = (((size_t)im * h + rr * M) * w + cc * M) * kC + ch;
+  const int row = w * kC;
+#pragma unroll
+  for (int u = 0; u < M; ++u)
+#pragma unroll
+    for (int v = 0; v < M; ++v) in.g[u][v] = to_f(g[base + u * row + v * kC]);
+  if (y != nullptr) {
+#pragma unroll
+    for (int u = 0; u < M; ++u)
+#pragma unroll
+      for (int v = 0; v < M; ++v) in.y[u][v] = to_f(y[base + u * row + v * kC]);
+  }
+  in.ga = gate != nullptr ? gate[im * kC + ch] : 1.0f;
+  in.gd = gate != nullptr ? ds[im * kC + ch] : 0.0f;
+}
 
-  // phase 1: prologue + dM (to shared and global), V (to global)
-  float dbacc = 0.0f;                        // channel tid % 64 (256 % 64 == 0)
-  for (int item = tid; item < TB * kC; item += kThreads) {
-    const int j = item / kC, ch = item % kC, gt = tile0 + j;
-    const bool valid = gt < ntiles;
-    const int gg = valid ? gt : 0;
-    const int im = gg / (th * tw), rr = (gg / tw) % th, cc = gg % tw;
-    float gu[M][M];
+template <typename T, int M>
+__device__ __forceinline__ float cot_dm(const CotIn<M>& in, bool gated, bool relu, bool valid,
+                                        float (&dm)[M + 2][M + 2]) {
+  constexpr int N = M + 2;
+  float gu[M][M], sum = 0.0f;
 #pragma unroll
-    for (int u = 0; u < M; ++u) {
+  for (int u = 0; u < M; ++u) {
 #pragma unroll
-      for (int v = 0; v < M; ++v) {
-        const size_t off = (((size_t)im * h + rr * M + u) * w + cc * M + v) * kC + ch;
-        float gv = 0.0f;
-        if (valid) {
-          gv = to_f(g[off]);
-          if (gate != nullptr) gv = gv * gate[im * kC + ch] + ds[im * kC + ch];
-          if (y != nullptr && !(to_f(y[off]) > 0.0f)) gv = 0.0f;
-        }
-        dbacc += gv;
-        gu[u][v] = gv;
-      }
+    for (int v = 0; v < M; ++v) {
+      float gv = in.g[u][v];
+      if (gated) gv = gv * in.ga + in.gd;
+      if (relu && !(in.y[u][v] > 0.0f)) gv = 0.0f;
+      if (!valid) gv = 0.0f;
+      sum += gv;
+      gu[u][v] = gv;
     }
-    float zz[M][N];                                    // zz[u][tj]
+  }
+  float zz[M][N];                                    // zz[u][tj]
 #pragma unroll
-    for (int u = 0; u < M; ++u) {
-      at_t_apply<M>(gu[u], zz[u]);
+  for (int u = 0; u < M; ++u) {
+    at_t_apply<M>(gu[u], zz[u]);
 #pragma unroll
-      for (int tj = 0; tj < N; ++tj) zz[u][tj] = rnd<T>(zz[u][tj]);
-    }
+    for (int tj = 0; tj < N; ++tj) zz[u][tj] = rnd<T>(zz[u][tj]);
+  }
 #pragma unroll
-    for (int tj = 0; tj < N; ++tj) {
-      float col[M], out[N];
+  for (int tj = 0; tj < N; ++tj) {
+    float col[M], out[N];
 #pragma unroll
-      for (int u = 0; u < M; ++u) col[u] = zz[u][tj];
-      at_t_apply<M>(col, out);
+    for (int u = 0; u < M; ++u) col[u] = zz[u][tj];
+    at_t_apply<M>(col, out);
 #pragma unroll
-      for (int ti = 0; ti < N; ++ti) {
-        const T d = from_f<T>(out[ti]);
-        dms[Bwd<T>::at(ti * N + tj, j, ch)] = d;
-        if (valid) dmbuf[((size_t)gt * N2 + ti * N + tj) * kC + ch] = d;
-      }
-    }
-    float vv[N][N];
-    input_transform<T, M>(x, gt, ntiles, h, w, ch, vv);
-    if (valid) {
+    for (int ti = 0; ti < N; ++ti) dm[ti][tj] = rnd<T>(out[ti]);
+  }
+  return sum;
+}
+
+// Two channels of dx at one pixel: rounded to T (mode 0), written in f32
+// (1) or added to the f32 value there (2).
+template <typename T>
+__device__ __forceinline__ void put_dx(void* out, size_t off, int mode, float a, float b) {
+  if (mode == 2) {
+    float2* p = reinterpret_cast<float2*>(static_cast<float*>(out) + off);
+    const float2 o = *p;
+    *p = make_float2(o.x + a, o.y + b);
+  } else if (mode == 1) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(a, b);
+  } else if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + off) =
+        pack_bf(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(a, b);
+  }
+}
+
+// ------------------------------------------------------ (1) dx kernel
+// T: activation type (y, U, dM, dV); G: type of the cotangent g. ut: U^T,
+// for bf16 in the mma fragment order of sres_wino_conv (one 8-byte load a
+// lane per (tap, n8 block, k-step)), for f32 plain (n*n, Cout, Cin). Grid:
+// nb x ns x nimg CTAs in clusters of nb (the bands of one image strip).
+template <typename T, typename G, int M>
+__global__ void __launch_bounds__(Cfg<T>::kThr, 1)
+wino_bwd_dx_kernel(const G* __restrict__ g, const T* __restrict__ y, const void* __restrict__ ut,
+                   const float* __restrict__ gate, const float* __restrict__ ds,
+                   void* __restrict__ out, float* __restrict__ dbpart, int h, int w,
+                   int out_mode, DxGeo geo) {
+  constexpr int N = M + 2, N2 = N * N, NT = Cfg<T>::kThr;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int th = h / M, tw = w / M, nb = geo.nb, rank = (int)cluster.block_rank();
+  const int unit = blockIdx.x / nb, im = unit / geo.ns, strip = unit % geo.ns;
+  const int rb0 = rank * th / nb, rb1 = (rank + 1) * th / nb;
+  const int s0 = strip * tw / geo.ns, s1 = (strip + 1) * tw / geo.ns;
+  const int c0 = max(s0 - 1, 0), cs = min(s1 + 1, tw) - c0;
+  const int cols = M * (s1 - s0), px0 = M * s0, tbs = geo.tbs, cgn = geo.cg;
+  const int ps = band_stride<M>(cgn);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* dms = reinterpret_cast<T*>(smem_raw);                 // [N2][tbs][64] dM, then s2
+  float* band = reinterpret_cast<float*>(smem_raw + geo.band);   // [rows][cols][ps]
+  float* top = reinterpret_cast<float*>(smem_raw + geo.rows);    // [2][cols][64]
+  float* carry = top + 2 * geo.cols * kC;                  // [2][cols][64]
+  float* red = reinterpret_cast<float*>(smem_raw + geo.red);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q4 = lane & 3;
+  const int mb = warp >> 3, nbk = warp & 7, ci = 8 * nbk + 2 * q4, ch = tid % kC;
+  const size_t img = (size_t)im * h * w * kC;
+  float dbacc = 0.0f;
+
+  for (int r = rb0; r < rb1; r += geo.kr) {
+    const int kk = min(geo.kr, rb1 - r), ntile = kk * cs, z = opaque_zero();
+    const int brows = M * kk + 2;
+
+    // (a) the prologue and dM of every tile of the pass, two items at once
+    for (int item = tid; item < ntile * kC; item += 2 * NT) {
+      float dm0[N][N], dm1[N][N];
+      const int j0 = item / kC, j1 = (item + NT) / kC;
+      const bool v1 = item + NT < ntile * kC;
+      const int cc0 = c0 + j0 % cs, cc1 = c0 + j1 % cs;
+      CotIn<M> in0, in1;
+      cot_load<T, G, M>(in0, g, y, gate, ds, true, im, r + j0 / cs, cc0, h, w, ch);
+      cot_load<T, G, M>(in1, g, y, gate, ds, v1, im, r + j1 / cs, cc1, h, w, ch);
+      const float sa = cot_dm<T, M>(in0, gate != nullptr, y != nullptr, true, dm0);
+      const float sb = cot_dm<T, M>(in1, gate != nullptr, y != nullptr, v1, dm1);
+      if (cc0 >= s0 && cc0 < s1) dbacc += sa;
+      if (v1 && cc1 >= s0 && cc1 < s1) dbacc += sb;
 #pragma unroll
       for (int ti = 0; ti < N; ++ti)
 #pragma unroll
-        for (int tj = 0; tj < N; ++tj)
-          vbuf[((size_t)gt * N2 + ti * N + tj) * kC + ch] = from_f<T>(vv[ti][tj]);
+        for (int tj = 0; tj < N; ++tj) {
+          dms[z + sw64<T>((ti * N + tj) * tbs + j0, ch)] = from_f<T>(dm0[ti][tj]);
+          if (v1) dms[z + sw64<T>((ti * N + tj) * tbs + j1, ch)] = from_f<T>(dm1[ti][tj]);
+        }
+    }
+    __syncthreads();
+
+    // (b) dV = dM . U^T, one tap row (ti) at a time: the warp's 16 tiles x
+    // 8 channels of the row's N taps in registers (rounded to T); after the
+    // row, a barrier, and the first stage of the B-adjoint, s2[ti][q]
+    // (rounded to T), is stored over the row's dM, which no warp reads
+    // again. bf16: U^T fragments straight from L2, kPrefetch taps ahead.
+    const bool live = 16 * mb < ntile;
+    const int j0 = 16 * mb + gq, j1 = j0 + 8;
+    uint2 bq[kPrefetch][4];
+    const uint2* uf = static_cast<const uint2*>(ut) + z + nbk * 4 * 32 + lane;
+    if constexpr (sizeof(T) == 2) {
+#pragma unroll
+      for (int p = 0; p < kPrefetch; ++p)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) bq[p][ks] = __ldg(uf + (p * 32 + ks) * 32);
+    }
+#pragma unroll
+    for (int ti = 0; ti < N; ++ti) {
+      float dv[N][4];
+#pragma unroll
+      for (int tj = 0; tj < N; ++tj) {
+        const int t = ti * N + tj;
+        float* c = dv[tj];
+        c[0] = c[1] = c[2] = c[3] = 0.0f;
+        if constexpr (sizeof(T) == 2) {
+          uint2 b[4];
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) b[ks] = bq[t % kPrefetch][ks];
+          if (t + kPrefetch < N2) {
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks)
+              bq[t % kPrefetch][ks] = __ldg(uf + ((t + kPrefetch) * 32 + ks) * 32);
+          }
+          if (live) {
+            const int r8 = lane & 7, mat = lane >> 3, arow = 16 * mb + r8 + (mat & 1) * 8;
+            const T* a = dms + z + (t * tbs + arow) * kC;
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+              uint32_t af[4];
+              ldsm_x4<false>(af, a + (((2 * ks + (mat >> 1)) ^ (arow & 7)) << 3));
+              mma_bf16(c, af, b[ks].x, b[ks].y);
+            }
+          }
+        } else {
+          const float* ub = static_cast<const float*>(ut) + z + (size_t)t * kC * kC + ci;
+#pragma unroll 8
+          for (int k = 0; k < kC; ++k) {
+            const float a0 = dms[z + sw64<float>(t * tbs + j0, k)];
+            const float a1 = dms[z + sw64<float>(t * tbs + j1, k)];
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(ub + k * kC));
+            c[0] = fmaf(a0, bb.x, c[0]);
+            c[1] = fmaf(a0, bb.y, c[1]);
+            c[2] = fmaf(a1, bb.x, c[2]);
+            c[3] = fmaf(a1, bb.y, c[3]);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[e] = rnd<T>(c[e]);
+      }
+      __syncthreads();      // every warp is done with this tap row's dM
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {          // e: (tile j0 + 8 (e / 2), channel ci + e % 2)
+        float row[N], s2[N];
+#pragma unroll
+        for (int tj = 0; tj < N; ++tj) row[tj] = dv[tj][e];
+        bt_t_apply<M>(row, s2);
+#pragma unroll
+        for (int q = 0; q < N; ++q) dv[q][e] = s2[q];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int j = j0 + 8 * hh;
+        if (j < ntile) {
+#pragma unroll
+          for (int q = 0; q < N; ++q) {
+            const int at = z + sw64<T>((ti * N + q) * tbs + j, ci);
+            const float a = dv[q][2 * hh], b = dv[q][2 * hh + 1];
+            if constexpr (sizeof(T) == 2)
+              *reinterpret_cast<uint32_t*>(dms + at) =
+                  pack_bf(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+            else
+              *reinterpret_cast<float2*>(dms + at) = make_float2(a, b);
+          }
+        }
+      }
+    }
+    __syncthreads();        // s2 whole
+
+    // (c) rounds of cgn channels: dd = the second stage of the B-adjoint
+    // (f32) overlap-added into the band, phase (tile-row parity,
+    // tile-column parity) at a time, then the band's pixel rows M r - 1 + i
+    // out: the first two finish the carried rows (or, in a band's first
+    // pass, are kept for the cluster exchange), the last two are carried,
+    // the rest are done
+    for (int g0 = 0; g0 < kC; g0 += cgn) {
+      for (int i = tid; i < brows * cols * ps; i += NT) band[z + i] = 0.0f;
+      __syncthreads();
+#pragma unroll 1
+      for (int ph = 0; ph < 4; ++ph) {
+        const int pr = ph >> 1, pc = ph & 1;
+        const int nr = (kk - pr + 1) / 2, nc = (cs - pc + 1) / 2;
+        for (int it = tid; it < nr * nc * cgn; it += NT) {
+          const int a = it / cgn, c = g0 + it % cgn;
+          const int lr = pr + 2 * (a / nc), lc = pc + 2 * (a % nc), j = lr * cs + lc;
+#pragma unroll
+          for (int q = 0; q < N; ++q) {
+            const int bc = M * (c0 + lc) - 1 + q - px0;
+            if (bc < 0 || bc >= cols) continue;
+            float col[N], dd[N];
+#pragma unroll
+            for (int ti = 0; ti < N; ++ti)
+              col[ti] = to_f(dms[z + sw64<T>((ti * N + q) * tbs + j, c)]);
+            bt_t_apply<M>(col, dd);
+            float* bp = band + z + ((M * lr) * cols + bc) * ps + c - g0;
+#pragma unroll
+            for (int p = 0; p < N; ++p) bp[p * cols * ps] += dd[p];
+          }
+        }
+        __syncthreads();
+      }
+      for (int it = tid; it < cols * (cgn / 2); it += NT) {
+        const int bc = it / (cgn / 2), cl = 2 * (it % (cgn / 2)), cp = g0 + cl;
+        const size_t col = img + (size_t)(px0 + bc) * kC + cp;
+        for (int i = 0; i < brows; ++i) {
+          const float2 v = *reinterpret_cast<const float2*>(band + z + (i * cols + bc) * ps + cl);
+          if (i < 2) {
+            float* kept = (r == rb0 ? top : carry) + (i * cols + bc) * kC + cp;
+            float2* kp = reinterpret_cast<float2*>(kept);
+            if (r == rb0) {
+              *kp = v;
+            } else {
+              const float2 c = *kp;
+              put_dx<T>(out, col + (size_t)(M * r - 1 + i) * w * kC, out_mode, c.x + v.x,
+                        c.y + v.y);
+            }
+          } else if (i < M * kk) {
+            put_dx<T>(out, col + (size_t)(M * r - 1 + i) * w * kC, out_mode, v.x, v.y);
+          } else {
+            *reinterpret_cast<float2*>(carry + ((i - M * kk) * cols + bc) * kC + cp) = v;
+          }
+        }
+      }
+      __syncthreads();      // the band is free for the next round
     }
   }
-  dbred[tid] = dbacc;
-  __syncthreads();
+
+  // (d) the rows under two bands: pixel row M rb0 (this band's top row, plus
+  // the band above's carried row) and M rb1 - 1 (the carried row, plus the
+  // band below's top row)
+  cluster.sync();
+  const float* above = rank > 0 ? cluster.map_shared_rank(carry, rank - 1) : nullptr;
+  const float* below = rank < nb - 1 ? cluster.map_shared_rank(top, rank + 1) : nullptr;
+  for (int it = tid; it < cols * (kC / 2); it += NT) {
+    const int bc = it / (kC / 2), cp = 2 * (it % (kC / 2));
+    const size_t col = img + (size_t)(px0 + bc) * kC + cp;
+    const int i1 = (cols + bc) * kC + cp, i0 = bc * kC + cp;
+    float2 v = *reinterpret_cast<const float2*>(top + i1);
+    if (above != nullptr) {
+      const float2 c = *reinterpret_cast<const float2*>(above + i1);
+      v = make_float2(v.x + c.x, v.y + c.y);
+    }
+    put_dx<T>(out, col + (size_t)(M * rb0) * w * kC, out_mode, v.x, v.y);
+    v = *reinterpret_cast<const float2*>(carry + i0);
+    if (below != nullptr) {
+      const float2 c = *reinterpret_cast<const float2*>(below + i0);
+      v = make_float2(v.x + c.x, v.y + c.y);
+    }
+    put_dx<T>(out, col + (size_t)(M * rb1 - 1) * w * kC, out_mode, v.x, v.y);
+  }
+  red[tid] = dbacc;
+  cluster.sync();           // no CTA leaves while a neighbour reads its rows
   if (tid < kC) {
     float t = 0.0f;
 #pragma unroll
-    for (int l = 0; l < kThreads / kC; ++l) t += dbred[l * kC + tid];
+    for (int l = 0; l < NT / kC; ++l) t += red[l * kC + tid];
     dbpart[(size_t)blockIdx.x * kC + tid] = t;
   }
+}
 
-  // phase 2: dV = dM . U^T per tap, rounded to T
-  DvProducts<T, N2>::run(dms, dvs, ut, tid);
-  __syncthreads();
-
-  // phase 3: dd = BT^T . dV . BT per (tile, ci): s2[ti][q] rounded to T
-  for (int item = tid; item < TB * kC; item += kThreads) {
-    const int j = item / kC, ci = item % kC, gt = tile0 + j;
-    if (gt >= ntiles) continue;
-    float s2[N][N];                                    // s2[ti][q]
-#pragma unroll
-    for (int ti = 0; ti < N; ++ti) {
-      float row[N];
-#pragma unroll
-      for (int tj = 0; tj < N; ++tj) row[tj] = to_f(dvs[Bwd<T>::at(ti * N + tj, j, ci)]);
-      bt_t_apply<M>(row, s2[ti]);
-#pragma unroll
-      for (int q = 0; q < N; ++q) s2[ti][q] = rnd<T>(s2[ti][q]);
-    }
-#pragma unroll
-    for (int q = 0; q < N; ++q) {
-      float col[N], dd[N];
-#pragma unroll
-      for (int ti = 0; ti < N; ++ti) col[ti] = s2[ti][q];
-      bt_t_apply<M>(col, dd);
-#pragma unroll
-      for (int p = 0; p < N; ++p)
-        ddbuf[((size_t)gt * N2 + p * N + q) * kC + ci] = dd[p];
-    }
+// ------------------------------------------------------ (2) dU kernel
+// Wait for phase `parity` of an mbarrier in this CTA's shared memory; traps
+// (a launch error, not a hang) if it never completes.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1ll << 24)) __trap();
   }
 }
 
-// ------------------------------------------------ (K1.2) dx gather
-// Thread = (pixel, 4 channels). OutT = T (mode 0: round once) or float
-// (mode 1: write; mode 2: add into out).
-template <typename OutT, int M>
-__global__ void __launch_bounds__(kThreads)
-wino_dx_gather_kernel(const float* __restrict__ dd, OutT* __restrict__ out,
-                      int nimg, int h, int w, int accumulate) {
-  constexpr int N = M + 2;
-  const long long total = (long long)nimg * h * w * (kC / 4);
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const int c4 = (int)(idx % (kC / 4)) * 4;
-  const long long pix = idx / (kC / 4);
-  const int xx = (int)(pix % w), yy = (int)((pix / w) % h), im = (int)(pix / ((long long)w * h));
-  const int th = h / M, tw = w / M;
-  // tiles r with 0 <= yy + 1 - M*r <= N - 1
-  const int r_hi = min((yy + 1) / M, th - 1), s_hi = min((xx + 1) / M, tw - 1);
-  const int r_lo = yy + 2 - N <= 0 ? 0 : (yy + 2 - N + M - 1) / M;
-  const int s_lo = xx + 2 - N <= 0 ? 0 : (xx + 2 - N + M - 1) / M;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int r = r_lo; r <= r_hi; ++r) {
-    const int p = yy + 1 - M * r;
-    for (int s = s_lo; s <= s_hi; ++s) {
-      const int q = xx + 1 - M * s;
-      const size_t tile = ((size_t)im * th + r) * tw + s;
-      float f[4];
-      load4(dd + (tile * N * N + p * N + q) * kC + c4, f);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] += f[k];
-    }
+// Grid: kDuBlocks x ranges, a cluster per range. CTA cb of a cluster holds
+// dU[t][16 cb + i][co] for every tap t over the range's tiles, in passes of
+// TB tiles: it recomputes V of its 16 input channels and dM of output
+// channels 16 cb.. (its quarter) into shared memory, sends the quarter to
+// the three other CTAs with bulk copies (cp.async.bulk into distributed
+// shared memory, each completing on the receiver's mbarrier), and runs
+// V^T . dM on mma.sync (bf16) or FMAs (f32). dM is kept by quarter,
+// [q][t][tile][16]. Warp w holds the output channels 16 (w % 4).. (quarter
+// w % 4) of taps w / 4, w / 4 + NW / 4, ...
+template <typename T, typename G, int M>
+__global__ void __launch_bounds__(Cfg<T>::kThr, 1)
+wino_bwd_du_kernel(const G* __restrict__ g, const T* __restrict__ x, const T* __restrict__ y,
+                   const float* __restrict__ gate, const float* __restrict__ ds,
+                   float* __restrict__ part, int nimg, int h, int w) {
+  constexpr int N = M + 2, N2 = N * N, TB = Cfg<T>::TB, NT = Cfg<T>::kThr, NW = NT / 32;
+  constexpr int TPW = N2 * 4 / NW;                  // taps a warp accumulates
+  constexpr int QE = N2 * TB * 16;                  // elements of a quarter of dM
+  constexpr uint32_t QB = QE * sizeof(T);           // its bytes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cb = (int)cluster.block_rank(), rng = blockIdx.y, nrng = gridDim.y;
+  const int th = h / M, tw = w / M, ntiles = nimg * th * tw;
+  const int t0 = (int)((long long)rng * ntiles / nrng);
+  const int t1 = (int)((long long)(rng + 1) * ntiles / nrng);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* dmq = reinterpret_cast<T*>(smem_raw);                  // [4][N2][TB][16]
+  T* vs = dmq + kDuBlocks * QE;                             // [N2][TB][16]
+  const uint32_t bar = smem_u32(vs + QE);                   // the other quarters landed
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q4 = lane & 3;
+  const int nq = warp & 3, tw0 = warp >> 2;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  OutT* o = out + pix * kC + c4;
-  if constexpr (sizeof(OutT) == 4) {
-    float* of = reinterpret_cast<float*>(o);
-    if (accumulate) {
-      const float4 prev = *reinterpret_cast<const float4*>(of);
-      acc[0] += prev.x;
-      acc[1] += prev.y;
-      acc[2] += prev.z;
-      acc[3] += prev.w;
+  cluster.sync();           // every CTA's mbarrier is set before a copy signals it
+  float acc[TPW][2][4];
+#pragma unroll
+  for (int i = 0; i < TPW; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+
+  int phase = 0;
+  for (int tile0 = t0; tile0 < t1; tile0 += TB, phase ^= 1) {
+    const int nt = min(TB, t1 - tile0), z = opaque_zero();
+    // V of channels 16 cb.., dM of channels 16 cb.. (the CTA's quarter)
+    for (int item = tid; item < TB * 32; item += NT) {
+      const int j = (item >> 4) & (TB - 1), cl = item & 15, c = 16 * cb + cl;
+      float v[N][N];
+      if (item < TB * 16) {
+        input_transform<T, M>(x, j < nt ? tile0 + j : ntiles, ntiles, h, w, c, v);
+#pragma unroll
+        for (int ti = 0; ti < N; ++ti)
+#pragma unroll
+          for (int tj = 0; tj < N; ++tj)
+            vs[z + sw16<T>((ti * N + tj) * TB + j, cl)] = from_f<T>(v[ti][tj]);
+      } else {
+        const int gg = tile0 + j;
+        CotIn<M> in;
+        cot_load<T, G, M>(in, g, y, gate, ds, j < nt, gg / (th * tw), (gg / tw) % th, gg % tw,
+                          h, w, c);
+        cot_dm<T, M>(in, gate != nullptr, y != nullptr, j < nt, v);
+#pragma unroll
+        for (int ti = 0; ti < N; ++ti)
+#pragma unroll
+          for (int tj = 0; tj < N; ++tj)
+            dmq[z + cb * QE + sw16<T>((ti * N + tj) * TB + j, cl)] = from_f<T>(v[ti][tj]);
+      }
     }
-    store4(of, acc);
-  } else {
-    uint2 pk;
-    pk.x = pack_bf(__float2bfloat16_rn(acc[0]), __float2bfloat16_rn(acc[1]));
-    pk.y = pack_bf(__float2bfloat16_rn(acc[2]), __float2bfloat16_rn(acc[3]));
-    *reinterpret_cast<uint2*>(o) = pk;
-  }
-}
-
-// ------------------------------------------------ (K1.3) weight gradient
-// Block (tap t, K-slice s) sums V[tile][t]^T dM[tile][t] over its tiles in
-// chunks of 32 staged in shared memory; writes one 64x64 f32 partial.
-constexpr int kDuChunk = 32;
-constexpr int kDuRow = kC + 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wino_du_kernel(const T* __restrict__ vbuf, const T* __restrict__ dmbuf,
-               float* __restrict__ part, int ntiles, int n2) {
-  __shared__ __align__(16) T vc[kDuChunk][kDuRow];
-  __shared__ __align__(16) T dc[kDuChunk][kDuRow];
-  const int t = blockIdx.x, s = blockIdx.y, nsplit = gridDim.y, tid = threadIdx.x;
-  const int k_begin = (int)((long long)ntiles * s / nsplit);
-  const int k_end = (int)((long long)ntiles * (s + 1) / nsplit);
-  float acc[16];
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the bulk copies
+    __syncthreads();        // this CTA's quarter of dM written
+    // sent to the other three CTAs at the same place; their quarters come
+    // in on this CTA's mbarrier
+    if (tid == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                   "r"((kDuBlocks - 1) * QB)
+                   : "memory");
+      const uint32_t src = smem_u32(dmq + cb * QE);
 #pragma unroll
-  for (int k = 0; k < 16; ++k) acc[k] = 0.0f;
-  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, q4 = lane & 3;
-  const int mi = warp & 3, nh = warp >> 2;               // bf16 warp tiling
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kDuChunk) {
-    for (int e = tid; e < kDuChunk * kC; e += kThreads) {
-      const int kk = e / kC, ch = e % kC, tile = k0 + kk;
-      const bool ok = tile < k_end;
-      const size_t off = ((size_t)(ok ? tile : 0) * n2 + t) * kC + ch;
-      vc[kk][ch] = ok ? vbuf[off] : from_f<T>(0.0f);
-      dc[kk][ch] = ok ? dmbuf[off] : from_f<T>(0.0f);
+      for (int a = 1; a < kDuBlocks; ++a) {
+        const uint32_t peer = (cb + a) % kDuBlocks;
+        uint32_t dst, pbar;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(src), "r"(peer));
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(pbar) : "r"(bar), "r"(peer));
+        asm volatile(
+            "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+            "r"(src), "r"(QB), "r"(pbar)
+            : "memory");
+      }
     }
-    __syncthreads();
-    if constexpr (sizeof(T) == 2) {
-      // 64 (ci) x 64 (co): warp = rows 16*mi.., columns 32*nh.. (4 n8 blocks)
+    mbar_wait(bar, phase);  // dM whole in every CTA of the cluster
 #pragma unroll
-      for (int ks = 0; ks < kDuChunk / 16; ++ks) {
-        const int kb = 16 * ks + 2 * q4, r0 = 16 * mi + gq;
-        uint32_t a[4];
-        a[0] = pack_bf(vc[kb][r0], vc[kb + 1][r0]);
-        a[1] = pack_bf(vc[kb][r0 + 8], vc[kb + 1][r0 + 8]);
-        a[2] = pack_bf(vc[kb + 8][r0], vc[kb + 9][r0]);
-        a[3] = pack_bf(vc[kb + 8][r0 + 8], vc[kb + 9][r0 + 8]);
+    for (int i = 0; i < TPW; ++i) {
+      const int t = tw0 + (NW / 4) * i;
+      const T* va = vs + z + t * TB * 16;
+      const T* db = dmq + z + nq * QE + t * TB * 16;
+      if constexpr (sizeof(T) == 2) {
+        const int r8 = lane & 7, mat = lane >> 3;
 #pragma unroll
-        for (int jn = 0; jn < 4; ++jn) {
-          const int n0 = 32 * nh + 8 * jn + gq;
-          const uint32_t b0 = pack_bf(dc[kb][n0], dc[kb + 1][n0]);
-          const uint32_t b1 = pack_bf(dc[kb + 8][n0], dc[kb + 9][n0]);
-          mma_bf16(acc + 4 * jn, a, b0, b1);
+        for (int ks = 0; ks < TB / 16; ++ks) {
+          uint32_t af[4], bfr[4];
+          const int arow = 16 * ks + r8 + (mat >> 1) * 8;
+          ldsm_x4<true>(af, va + sw16<T>(arow, (mat & 1) * 8));
+          const int brow = 16 * ks + r8 + (mat & 1) * 8;
+          ldsm_x4<true>(bfr, db + sw16<T>(brow, (mat >> 1) * 8));
+          mma_bf16(acc[i][0], af, bfr[0], bfr[1]);
+          mma_bf16(acc[i][1], af, bfr[2], bfr[3]);
+        }
+      } else {
+        for (int k = 0; k < TB; ++k) {
+          const float a0 = va[sw16<T>(k, gq)], a1 = va[sw16<T>(k, gq + 8)];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int n = 8 * j + 2 * q4;
+            const float b0 = db[sw16<T>(k, n)], b1 = db[sw16<T>(k, n + 1)];
+            acc[i][j][0] = fmaf(a0, b0, acc[i][j][0]);
+            acc[i][j][1] = fmaf(a0, b1, acc[i][j][1]);
+            acc[i][j][2] = fmaf(a1, b0, acc[i][j][2]);
+            acc[i][j][3] = fmaf(a1, b1, acc[i][j][3]);
+          }
         }
       }
-    } else {
-      // thread (ci = tid / 4, co = 16 * (tid % 4) + k)
-      const int ci = tid >> 2, co0 = 16 * (tid & 3);
-      for (int kk = 0; kk < kDuChunk; ++kk) {
-        const float v = to_f(vc[kk][ci]);
-#pragma unroll
-        for (int k = 0; k < 16; ++k) acc[k] = fmaf(v, to_f(dc[kk][co0 + k]), acc[k]);
-      }
     }
-    __syncthreads();
+    cluster.sync();         // no CTA reads V or dM of this pass any more
   }
-  float* pt = part + ((size_t)t * nsplit + s) * kC * kC;
-  if constexpr (sizeof(T) == 2) {
+
+  // one partial per range: part[range][t][ci][co], this CTA's 16 channels
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-      const int ci = 16 * mi + gq, co = 32 * nh + 8 * jn + 2 * q4;
-      pt[ci * kC + co] = acc[4 * jn];
-      pt[ci * kC + co + 1] = acc[4 * jn + 1];
-      pt[(ci + 8) * kC + co] = acc[4 * jn + 2];
-      pt[(ci + 8) * kC + co + 1] = acc[4 * jn + 3];
-    }
-  } else {
-    const int ci = tid >> 2, co0 = 16 * (tid & 3);
+  for (int i = 0; i < TPW; ++i) {
+    const int t = tw0 + (NW / 4) * i;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) pt[ci * kC + co0 + k] = acc[k];
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(part + (((size_t)rng * N2 + t) * kC + 16 * cb + gq + 8 * hf) *
+                                              kC + 16 * nq + 8 * j + 2 * q4) =
+            make_float2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+  }
+}
+
+// ------------------------------------------------------ (3) the sums
+// du[e] = sum over ranges of dupart[range][e], db[c] = sum over dx CTAs of
+// dbpart[cta][c], each in order.
+__global__ void __launch_bounds__(kThreads)
+wino_bwd_sum_kernel(const float* __restrict__ dupart, int nrng, int ndu,
+                    const float* __restrict__ dbpart, int nblk, float* __restrict__ du,
+                    float* __restrict__ db) {
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  float t = 0.0f;
+  if (idx < ndu) {
+    for (int s = 0; s < nrng; ++s) t += dupart[(size_t)s * ndu + idx];
+    du[idx] = t;
+  } else if (idx < ndu + kC) {
+    for (int s = 0; s < nblk; ++s) t += dbpart[(size_t)s * kC + idx - ndu];
+    db[idx - ndu] = t;
   }
 }
 
@@ -471,56 +787,76 @@ ca_bwd_wgrad_kernel(const float* __restrict__ work, int nimg, int hidden,
 }
 
 // ------------------------------------------------------------ launchers
+template <typename T, int M>
+int scratch_floats(int nimg, int h, int w) {
+  constexpr int N2 = (M + 2) * (M + 2);
+  const DxGeo geo = dx_geometry<T, M>(h, w);
+  if (geo.smem == 0) return -1;
+  const int nrng = du_ranges(nimg * (h / M) * (w / M), Cfg<T>::TB);
+  return geo.nb * geo.ns * nimg * kC + nrng * N2 * kC * kC;
+}
+
+template <typename K, typename... Args>
+cudaError_t launch_clustered(K kernel, dim3 grid, dim3 cluster, int threads, int smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 template <typename T, typename G, int M>
 int launch_conv_bwd(const void* g, const void* x, const void* y, const void* ut,
-                    const float* gate, const float* ds, void* vbuf, void* dmbuf,
-                    float* ddbuf, float* dbpart, float* dupart, void* out,
-                    float* du, float* db, int nimg, int h, int w, int out_mode,
-                    int ksplit, cudaStream_t stream) {
-  constexpr int N2 = (M + 2) * (M + 2), TB = Bwd<T>::TB;
-  const size_t smem = 2 * (size_t)N2 * Bwd<T>::kPerTap * sizeof(T);
-  static bool done = false;
-  cudaError_t e = allow_smem(wino_bwd_tile_kernel<T, G, M>, smem, done);
+                    const float* gate, const float* ds, float* scratch, void* out, float* du,
+                    float* db, int nimg, int h, int w, int out_mode, cudaStream_t stream) {
+  constexpr int N2 = (M + 2) * (M + 2), TB = Cfg<T>::TB;
+  const DxGeo geo = dx_geometry<T, M>(h, w);
+  if (geo.smem == 0) return (int)cudaErrorInvalidValue;
+  static bool done_dx = false, done_du = false;
+  cudaError_t e = allow_smem(wino_bwd_dx_kernel<T, G, M>, kMaxSmem, done_dx);
   if (e != cudaSuccess) return (int)e;
-  const int ntiles = nimg * (h / M) * (w / M);
-  const int nblk = (ntiles + TB - 1) / TB;
-  wino_bwd_tile_kernel<T, G, M><<<nblk, kThreads, smem, stream>>>(
-      static_cast<const G*>(g), static_cast<const T*>(x), static_cast<const T*>(y),
-      ut, gate, ds, static_cast<T*>(vbuf), static_cast<T*>(dmbuf), ddbuf, dbpart,
-      nimg, h, w);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  const long long nthr = (long long)nimg * h * w * (kC / 4);
-  const int gblk = (int)((nthr + kThreads - 1) / kThreads);
-  if (out_mode == 0)
-    wino_dx_gather_kernel<T, M><<<gblk, kThreads, 0, stream>>>(
-        ddbuf, static_cast<T*>(out), nimg, h, w, 0);
-  else
-    wino_dx_gather_kernel<float, M><<<gblk, kThreads, 0, stream>>>(
-        ddbuf, static_cast<float*>(out), nimg, h, w, out_mode == 2);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  wino_du_kernel<T><<<dim3(N2, ksplit), kThreads, 0, stream>>>(
-      static_cast<const T*>(vbuf), static_cast<const T*>(dmbuf), dupart, ntiles, N2);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sum_partials_kernel<<<(N2 * kC * kC + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      dupart, du, N2, ksplit, kC * kC);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  sum_partials_kernel<<<1, kThreads, 0, stream>>>(dbpart, db, 1, nblk, kC);
+  if ((e = allow_smem(wino_bwd_du_kernel<T, G, M>, kMaxSmem, done_du)) != cudaSuccess)
+    return (int)e;
+  const int nblk = geo.nb * geo.ns * nimg, ntiles = nimg * (h / M) * (w / M);
+  const int nrng = du_ranges(ntiles, TB);
+  float* dbpart = scratch;
+  float* dupart = scratch + (size_t)nblk * kC;
+  const G* gg = static_cast<const G*>(g);
+  const T* yy = static_cast<const T*>(y);
+  e = launch_clustered(wino_bwd_dx_kernel<T, G, M>, dim3(nblk), dim3(geo.nb, 1, 1),
+                       Cfg<T>::kThr, geo.smem, stream, gg, yy, ut, gate, ds, out, dbpart, h, w,
+                       out_mode, geo);
+  if (e != cudaSuccess) return (int)e;
+  e = launch_clustered(wino_bwd_du_kernel<T, G, M>, dim3(kDuBlocks, nrng),
+                       dim3(kDuBlocks, 1, 1), Cfg<T>::kThr,
+                       N2 * TB * (kC + 16) * (int)sizeof(T) + 16, stream, gg,
+                       static_cast<const T*>(x), yy, gate, ds, dupart, nimg, h, w);
+  if (e != cudaSuccess) return (int)e;
+  const int ndu = N2 * kC * kC;
+  wino_bwd_sum_kernel<<<(ndu + kC + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      dupart, nrng, ndu, dbpart, nblk, du, db);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename G>
 int dispatch_m(int m, const void* g, const void* x, const void* y, const void* ut,
-               const float* gate, const float* ds, void* vbuf, void* dmbuf,
-               float* ddbuf, float* dbpart, float* dupart, void* out, float* du,
-               float* db, int nimg, int h, int w, int out_mode, int ksplit,
-               cudaStream_t s) {
+               const float* gate, const float* ds, float* scratch, void* out, float* du,
+               float* db, int nimg, int h, int w, int out_mode, cudaStream_t s) {
   if (m == 4)
-    return launch_conv_bwd<T, G, 4>(g, x, y, ut, gate, ds, vbuf, dmbuf, ddbuf, dbpart,
-                                    dupart, out, du, db, nimg, h, w, out_mode, ksplit, s);
-  return launch_conv_bwd<T, G, 2>(g, x, y, ut, gate, ds, vbuf, dmbuf, ddbuf, dbpart,
-                                  dupart, out, du, db, nimg, h, w, out_mode, ksplit, s);
+    return launch_conv_bwd<T, G, 4>(g, x, y, ut, gate, ds, scratch, out, du, db, nimg, h, w,
+                                    out_mode, s);
+  return launch_conv_bwd<T, G, 2>(g, x, y, ut, gate, ds, scratch, out, du, db, nimg, h, w,
+                                  out_mode, s);
 }
 
 }  // namespace
@@ -530,36 +866,40 @@ int dispatch_m(int m, const void* g, const void* x, const void* y, const void* u
 // allocates nothing and does not synchronise.
 extern "C" {
 
-int sres_wino_bwd_tiles(int bf16_) { return bf16_ ? Bwd<bf16>::TB : Bwd<float>::TB; }
+// f32 elements of the conv backward's scratch (the dx kernel's db partials
+// and the dU kernel's per-cluster partials), or -1 for a shape it does not take.
+int sres_wino_bwd_scratch(int nimg, int h, int w, int m, int bf16_) {
+  if ((m != 2 && m != 4) || nimg < 1 || h < m || w < m || h % m || w % m) return -1;
+  if (bf16_)
+    return m == 4 ? scratch_floats<bf16, 4>(nimg, h, w) : scratch_floats<bf16, 2>(nimg, h, w);
+  return m == 4 ? scratch_floats<float, 4>(nimg, h, w) : scratch_floats<float, 2>(nimg, h, w);
+}
 
 // g (nimg, h, w, 64) NHWC of float (g_f32 = 1) or of the activation type;
-// x, y: activation type (bf16_ = 1: bf16, else float; y may be null);
-// ut: U^T = (n*n, Cout, Cin), for bf16 in the mma fragment order of
-// sres_wino_conv; gate, ds: (nimg, 64) f32 or null. Scratch: vbuf, dmbuf
-// (ntiles, n*n, 64) activation type; ddbuf (ntiles, n*n, 64) f32; dbpart
-// (ceil(ntiles / sres_wino_bwd_tiles), 64) f32; dupart (n*n, ksplit, 64, 64)
-// f32. Out: `out` (nimg, h, w, 64) in the activation type (out_mode 0), f32
-// written (1) or f32 added to (2); du (n*n, 64, 64) f32; db (64,) f32.
+// x, y: activation type (bf16_ = 1: bf16, else float; y may be null); ut:
+// U^T = (n*n, Cout, Cin) in the activation type, for bf16 in the mma
+// fragment order of sres_wino_conv; gate, ds: (nimg, 64) f32 or null;
+// scratch: sres_wino_bwd_scratch floats. Out: `out` (nimg, h, w, 64) in the
+// activation type (out_mode 0), f32 written (1) or f32 added to (2); du
+// (n*n, 64, 64) f32; db (64,) f32.
 int sres_wino_conv_bwd(const void* g, const void* x, const void* y, const void* ut,
-                       const float* gate, const float* ds, void* vbuf, void* dmbuf,
-                       float* ddbuf, float* dbpart, float* dupart, void* out,
-                       float* du, float* db, int nimg, int h, int w, int m,
-                       int bf16_, int g_f32, int out_mode, int ksplit, int device,
-                       void* stream) {
+                       const float* gate, const float* ds, float* scratch, void* out,
+                       float* du, float* db, int nimg, int h, int w, int m, int bf16_,
+                       int g_f32, int out_mode, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if ((m != 2 && m != 4) || h % m || w % m || ksplit < 1 || out_mode < 0 ||
-      out_mode > 2 || (!bf16_ && !g_f32) || (out_mode == 0 && g_f32 && bf16_))
+  if (sres_wino_bwd_scratch(nimg, h, w, m, bf16_) < 0 || out_mode < 0 || out_mode > 2 ||
+      (!bf16_ && !g_f32) || (out_mode == 0 && g_f32 && bf16_))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!bf16_)
-    return dispatch_m<float, float>(m, g, x, y, ut, gate, ds, vbuf, dmbuf, ddbuf, dbpart,
-                                    dupart, out, du, db, nimg, h, w, out_mode, ksplit, s);
+    return dispatch_m<float, float>(m, g, x, y, ut, gate, ds, scratch, out, du, db, nimg, h, w,
+                                    out_mode, s);
   if (g_f32)
-    return dispatch_m<bf16, float>(m, g, x, y, ut, gate, ds, vbuf, dmbuf, ddbuf, dbpart,
-                                   dupart, out, du, db, nimg, h, w, out_mode, ksplit, s);
-  return dispatch_m<bf16, bf16>(m, g, x, y, ut, gate, ds, vbuf, dmbuf, ddbuf, dbpart,
-                                dupart, out, du, db, nimg, h, w, out_mode, ksplit, s);
+    return dispatch_m<bf16, float>(m, g, x, y, ut, gate, ds, scratch, out, du, db, nimg, h, w,
+                                   out_mode, s);
+  return dispatch_m<bf16, bf16>(m, g, x, y, ut, gate, ds, scratch, out, du, db, nimg, h, w,
+                                out_mode, s);
 }
 
 // da (nimg, hw, 64) f32; c2 (nimg, hw, 64) of float or bf16; w1 (hidden, 64),

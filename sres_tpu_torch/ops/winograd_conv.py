@@ -53,8 +53,6 @@ LAUNCHES: Dict[str, int] = {"wino_conv": 0, "ca_skip": 0, "wino_conv_bwd": 0,
 # of the gate+skip pass, per sample
 _CA_POOL_SPLIT = 8
 _CA_GATE_SPLIT = 16
-# weight-gradient blocks of the conv backward: about two per SM of an H100
-_DU_BLOCKS = 264
 
 
 def reset_launches() -> None:
@@ -361,21 +359,19 @@ def _wino_conv_bwd_cuda(g, x, w, m, y, gate, ds, dprev):
     else:
         out = torch.empty_like(x, dtype=g.dtype, memory_format=torch.channels_last)
         mode = 1 if g.dtype == f32 else 0
-    n2 = (m + 2) ** 2
-    nt = t * (h // m) * (wd // m)
-    nblk = -(-nt // lib.sres_wino_bwd_tiles(int(xdt == torch.bfloat16)))
-    ksplit = max(1, min(-(-nt // 32), _DU_BLOCKS // n2))
-    emp = lambda *s, dt=f32: torch.empty(s, dtype=dt, device=x.device)
-    vbuf, dmbuf, ddbuf = emp(nt, n2, c, dt=xdt), emp(nt, n2, c, dt=xdt), emp(nt, n2, c)
-    dbpart, dupart = emp(nblk, c), emp(n2, ksplit, c, c)
-    du, db = emp(n2, c, c), emp(c)
+    bf = int(xdt == torch.bfloat16)
+    # the kernels' per-CTA partials of db and dU: no tensor of tiles × n²
+    n = lib.sres_wino_bwd_scratch(t, h, wd, m, bf)
+    if n < 0:
+        raise ValueError(f"conv backward takes no ({t}, {c}, {h}, {wd}) at m={m}")
+    emp = lambda *s: torch.empty(s, dtype=f32, device=x.device)
+    scratch, du, db = emp(n), emp((m + 2) ** 2, c, c), emp(c)
     ptr = lambda a: a.data_ptr() if a is not None else None
     err = lib.sres_wino_conv_bwd(
         g.data_ptr(), x.data_ptr(), ptr(y), ut.data_ptr(), ptr(gate), ptr(ds),
-        vbuf.data_ptr(), dmbuf.data_ptr(), ddbuf.data_ptr(), dbpart.data_ptr(),
-        dupart.data_ptr(), out.data_ptr(), du.data_ptr(), db.data_ptr(),
-        t, h, wd, m, int(xdt == torch.bfloat16), int(g.dtype == f32), mode,
-        ksplit, x.device.index or 0, _stream(x.device))
+        scratch.data_ptr(), out.data_ptr(), du.data_ptr(), db.data_ptr(),
+        t, h, wd, m, bf, int(g.dtype == f32), mode, x.device.index or 0,
+        _stream(x.device))
     cuda.check(err, "wino_conv_bwd kernel")
     LAUNCHES["wino_conv_bwd"] += 1
     return out, du, db

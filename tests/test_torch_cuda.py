@@ -89,39 +89,70 @@ def _check_many(name, k32, p32, kbf, pbf):
         assert _rel(c, b) <= 2 * _rel(d, b) + 1e-4, (name, i, _rel(c, b), _rel(d, b))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m", [2, 4])
-@pytest.mark.parametrize("mode", ["plain", "relu", "ca", "accum"])
-def test_wino_conv_bwd_matches_twin(dev, m, mode):
-    """K1 in each of its modes: per-conv adjoint (g in the activation
-    dtype), ReLU gate, CA prologue into an f32 dx, ReLU gate accumulated
-    into an f32 buffer."""
-    rng = np.random.default_rng(20 + m)
+# (T, C, H, W) per m: "even" fills every band; "ragged" leaves the last
+# band of tile rows short (m=4: 5 x 11 tiles; m=2: 11 x 23); "wide" cuts
+# the image into column strips (25 and 50 tiles a row)
+_BWD_SHAPES = {"even": {2: (5, 64, 16, 24), 4: (5, 64, 16, 24)},
+               "ragged": {2: (3, 64, 22, 46), 4: (3, 64, 20, 44)},
+               "wide": {2: (2, 64, 12, 100), 4: (2, 64, 12, 100)}}
+
+
+def _bwd_operands(rng, shape, dev, m):
     cl = dict(memory_format=torch.channels_last)
-    shape = (5, 64, 16, 24)
     x, g = _t(rng, shape, dev), _t(rng, shape, dev)
     w = _t(rng, (64, 64, 3, 3), dev, 0.04)
     y = twc.wino_conv_plain(x, w, _t(rng, (64,), dev, 0.04), m, relu=True)
-    gate, ds = _t(rng, (5, 64), dev).sigmoid(), _t(rng, (5, 64), dev, 1e-3)
+    gate = _t(rng, (shape[0], 64), dev).sigmoid()
+    ds = _t(rng, (shape[0], 64), dev, 1e-3)
     prev = _t(rng, shape, dev).contiguous(**cl)
+    return x, g, w, y, gate, ds, prev
 
-    def run(fn, dt):
-        kw = {}
-        if mode in ("relu", "accum"):
-            kw["y"] = y.to(dt)
-        if mode == "ca":
-            kw.update(gate=gate, ds=ds)
-        if mode == "accum":
-            kw["dprev"] = prev.clone(memory_format=torch.channels_last)
-        gg = g if mode in ("ca", "accum") else g.to(dt)
-        return fn(gg, x.to(dt), w, m, **kw)
 
+def _bwd_run(fn, dt, mode, m, x, g, w, y, gate, ds, prev):
+    """One call in a mode: plain (g in the activation dtype, or in f32 as
+    EDSR's conv2 passes it), ReLU gate, CA prologue into an f32 dx, ReLU
+    gate accumulated into an f32 buffer."""
+    kw = {}
+    if mode in ("relu", "accum"):
+        kw["y"] = y.to(dt)
+    if mode == "ca":
+        kw.update(gate=gate, ds=ds)
+    if mode == "accum":
+        kw["dprev"] = prev.clone(memory_format=torch.channels_last)
+    gg = g if mode in ("ca", "accum", "plain_f32g") else g.to(dt)
+    return fn(gg, x.to(dt), w, m, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("mode", ["plain", "plain_f32g", "relu", "ca", "accum"])
+@pytest.mark.parametrize("shape", list(_BWD_SHAPES))
+def test_wino_conv_bwd_matches_twin(dev, m, mode, shape):
+    """The conv adjoint in each of its modes and layouts (bands, a short
+    last band, column strips) against its twin."""
+    rng = np.random.default_rng(20 + m)
+    ops = _bwd_operands(rng, _BWD_SHAPES[shape][m], dev, m)
     launches = twc.LAUNCHES["wino_conv_bwd"]
-    _check_many(f"m{m} {mode}", run(twc.wino_conv_bwd, torch.float32),
-                run(twc.wino_conv_bwd_plain, torch.float32),
-                run(twc.wino_conv_bwd, torch.bfloat16),
-                run(twc.wino_conv_bwd_plain, torch.bfloat16))
+    _check_many(f"m{m} {mode} {shape}",
+                *(_bwd_run(fn, dt, mode, m, *ops)
+                  for fn, dt in ((twc.wino_conv_bwd, torch.float32),
+                                 (twc.wino_conv_bwd_plain, torch.float32),
+                                 (twc.wino_conv_bwd, torch.bfloat16),
+                                 (twc.wino_conv_bwd_plain, torch.bfloat16))))
     assert twc.LAUNCHES["wino_conv_bwd"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+def test_wino_conv_bwd_is_deterministic(dev, dt):
+    """Two calls in the accum mode at the flagship shape (72, 64, 48, 48),
+    m=4, give the same bits: fixed-order sums, no atomics."""
+    rng = np.random.default_rng(24)
+    ops = _bwd_operands(rng, (72, 64, 48, 48), dev, 4)
+    a = _bwd_run(twc.wino_conv_bwd, dt, "accum", 4, *ops)
+    b = _bwd_run(twc.wino_conv_bwd, dt, "accum", 4, *ops)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
 @pytest.mark.cuda
