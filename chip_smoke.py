@@ -32,10 +32,12 @@ Phases, one line each (every line carries the card's name and power limit):
    loss and gradients against the plain twins, three Adam steps with their
    launch counts, ms/step and trained tiles/s against the direct cuDNN
    trunk under autograd, peak memory and a device-time profile of a step;
-10. kernel (e), window attention, against its plain twin at the SwinIR
-   serving shape (1728 windows of 64 tokens, C 64, 4 heads), unshifted and
-   shifted (the 144-window group mask), timed against the composition
-   F.linear → F.scaled_dot_product_attention → F.linear;
+10. kernel (e), window attention (one design at every T: the cluster
+   kernel wattn_fwd_core_kernel, then wattn_fwd_proj_kernel), against its
+   plain twin at the SwinIR serving shape (1728 windows of 64 tokens, C 64,
+   4 heads), unshifted and shifted (the 144-window group mask), timed
+   against the composition F.linear → F.scaled_dot_product_attention →
+   F.linear;
 11. kernel (f), the window-attention backward (one design at every T: the
    cluster kernel wattn_bwd_core_kernel, then wattn_bwd_proj_kernel and
    fixed-order partial sums), against its plain twin at T = 64: dx and the
@@ -49,8 +51,7 @@ Phases, one line each (every line carries the card's name and power limit):
 13. SwinIR ×4 training: build_optimizer (Adam, lr 2e-4) → build_train_step
    at batch 12: one step's loss and gradients against the plain twins,
    three Adam steps on one batch (16 window_attention and 16
-   window_attention_bwd launches each, none on the tiled forward; the loss
-   must fall), ms/step,
+   window_attention_bwd launches each; the loss must fall), ms/step,
    trained tiles/s and peak memory against the composition attention, and
    a profile;
 14. the direct-conv group kernels of ``model.fused`` against their plain
@@ -93,20 +94,20 @@ Phases, one line each (every line carries the card's name and power limit):
    loss must fall; 49 ``wino_conv`` and 33 ``wino_conv_bwd`` launches
    each), ms/step, tiles/s, peak memory and idle share against the direct
    trunk, and a profile;
-22. the tiled window-attention forward (T a multiple of 16 up to 256; T = 64
-   keeps phase 10's kernel) and the backward against their twins at
-   SwinIR-w16's serving shape (432 windows of 256 tokens, C 64, 4 heads),
-   unshifted and shifted (the 36-window group mask), timed against the
-   composition; and at T = 16 (8 windows) and T = 144 (6 windows, head
-   width 32, a cluster whose last CTA holds 16 query rows), checked only;
+22. the window-attention forward and backward (the kernels of phases 10
+   and 11) against their twins at SwinIR-w16's serving shape (432 windows
+   of 256 tokens, C 64, 4 heads), unshifted and shifted (the 36-window
+   group mask), timed against the composition; and at T = 16 (8 windows)
+   and T = 144 (6 windows, head width 32, a cluster whose last CTA holds 16
+   query rows), checked only;
 23. SwinIR ×4 with 16×16 windows (config/model/swinir.yaml + ``window_size:
    16``) served as phase 12 serves window 8: three requests of 12 HR tiles,
-   16 tiled forward launches each and none on the T = 64 kernels, held
-   against the plain twins, timed against the composition, profiled;
+   16 window_attention launches each, held against the plain twins, timed
+   against the composition, profiled;
 24. the same model trained as phase 13: one step's loss and gradients
-   against the plain twins, three Adam steps (16 tiled forward and 16
-   backward launches each, none on the T = 64 forward; the loss must
-   fall), ms/step, tiles/s, peak memory, the composition, a profile.
+   against the plain twins, three Adam steps (16 window_attention and 16
+   window_attention_bwd launches each; the loss must fall), ms/step,
+   tiles/s, peak memory, the composition, a profile.
 
 Tolerances: f32 max|kernel − plain| ≤ 3e-5·max|plain| (group 1e-4, and
 1e-2 for a group's gradients when a ReLU gate flipped between the kernel
@@ -126,10 +127,11 @@ kernels ``bound_ms`` is that of the timed mode (the conv as conv1).
 The last three lines are a JSON object describing every kernel of the path
 (``launches`` counted over the three steps of each train slice, phases 9,
 13, 17, 21 and 24, EDSR's adding to RCAN's ``wino_conv`` and
-``wino_conv_bwd``; the window-attention backward listed once per main
-path: ``window_attention_bwd`` at T = 64 with phase 13's launches and
-phase 11's times, ``window_attention_bwd_t256`` with phase 24's and phase
-22's, each naming its CUDA kernels; ``wino_conv_bwd`` naming its three
+``wino_conv_bwd``; the window attention listed once per main path and
+direction: ``window_attention`` and ``window_attention_bwd`` at T = 64
+with phase 13's launches and phase 10's and 11's times,
+``window_attention_t256`` and ``window_attention_bwd_t256`` with phase
+24's and phase 22's, each naming its CUDA kernels; ``wino_conv_bwd`` naming its three
 kernels, with each mode's times in ``modes``; ``serve_launches`` over the three
 requests of phases 5, 12, 16, 20 and 23; the chain's over the one probe
 launch of phase 18), the card's
@@ -1001,26 +1003,24 @@ def phase_wattn_bwd(dev, rng):
     return _wattn_bwd_case(dev, rng, SWIN_CFG, SWIN_NW, "11 kernel window_attention_bwd")
 
 
-def phase_wattn_tiled(dev, rng):
-    """Phase 22: the tiled kernels at SwinIR-w16's 432 windows of T = 256,
+def phase_wattn_t256(dev, rng):
+    """Phase 22: both kernels at SwinIR-w16's 432 windows of T = 256,
     timed; then T = 16 (4×4 windows) and T = 144 (12×12, head width 32) at
-    a few windows, checked only. Each kernel must launch on its tiled key
-    alone."""
+    a few windows, checked only. Each direction must launch its kernels."""
     from sres_tpu_torch.ops import window_attention as twa
     twa.reset_launches()
-    kern = {"window_attention_tiled": _wattn_fwd_case(
-                dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention_tiled"),
+    kern = {"window_attention_t256": _wattn_fwd_case(
+                dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention"),
             "window_attention_bwd_t256": _wattn_bwd_case(
                 dev, rng, SWIN16_CFG, SWIN16_NW, "22 kernel window_attention_bwd")}
     for ws, heads, nw, tile in ((4, 4, 8, (8, 16)), (12, 2, 6, (24, 36))):
         cfg = dict(SWIN16_CFG, window_size=ws, num_heads=heads)
-        _wattn_fwd_case(dev, rng, cfg, nw, "22 kernel window_attention_tiled", tile, False)
+        _wattn_fwd_case(dev, rng, cfg, nw, "22 kernel window_attention", tile, False)
         _wattn_bwd_case(dev, rng, cfg, nw, "22 kernel window_attention_bwd", tile, False)
     launches = dict(twa.LAUNCHES)
     say("22 kernel launches", launches=launches)
-    if launches["window_attention"] or not (
-            launches["window_attention_tiled"] and launches["window_attention_bwd"]):
-        raise CheckFailed(f"tiled T went to the T = 64 forward or to no kernel: {launches}")
+    if not (launches["window_attention"] and launches["window_attention_bwd"]):
+        raise CheckFailed(f"a window-attention direction launched no kernel: {launches}")
     return kern
 
 
@@ -1066,18 +1066,10 @@ def _windows(run, names, n):
     return {k: (statistics.median(v), v) for k, v in out.items()}
 
 
-def _wattn_keys(cfg):
-    """The LAUNCHES keys (forward, backward) of the kernels ``cfg``'s windows
-    run on: the T = 64 forward for 8×8 windows, the tiled one otherwise; the
-    backward's one design at every T."""
-    return ("window_attention" if cfg["window_size"] == 8 else "window_attention_tiled",
-            "window_attention_bwd")
-
-
 def phase_swin_serve(dev, seed, cfg=SWIN_CFG, label="12 swinir"):
     """Phase 12 (``cfg`` = SWIN_CFG) or 23 (SWIN16_CFG): three requests; every
-    window attention on the kernels of ``cfg``'s T and none on the other
-    mode's; returns the launches of the mode's two keys."""
+    window attention on the forward kernels and none on the backward's;
+    returns the launches of both keys."""
     import torch
     from sres_tpu_torch.models import build_model
     from sres_tpu_torch.models.layers import set_plain_twins
@@ -1104,9 +1096,8 @@ def phase_swin_serve(dev, seed, cfg=SWIN_CFG, label="12 swinir"):
                 and tuple(out.shape) == (SWIN_BATCH, 1, SWIN_HR, SWIN_HR)
                 and bool(torch.isfinite(out).all())):
             raise CheckFailed(f"swinir request {i}: non-finite or misshapen output")
-    fwd_key, bwd_key = _wattn_keys(cfg)
     want = dict.fromkeys(twa.LAUNCHES, 0)
-    want[fwd_key] = NREQ * cfg["nlayers"] * cfg["nblocks"]
+    want["window_attention"] = NREQ * cfg["nlayers"] * cfg["nblocks"]
     say(f"{label} launches", launches=launches, expected=want)
     if launches != want:
         raise CheckFailed(f"swinir launches {launches} != expected {want}")
@@ -1142,7 +1133,7 @@ def phase_swin_serve(dev, seed, cfg=SWIN_CFG, label="12 swinir"):
     use_composition(model, False)
     say(f"{label} summary", **{f"{k}_ms_per_request": v[0] for k, v in timing.items()},
         **{f"{k}_device_idle_pct": 100.0 * (1 - busy[k] / timing[k][0]) for k in busy})
-    return {fwd_key: launches[fwd_key], bwd_key: launches[bwd_key]}
+    return launches
 
 
 def phase_swin_train(dev, seed, cfg=SWIN_CFG, label="13 swinir"):
@@ -1196,11 +1187,9 @@ def phase_swin_train(dev, seed, cfg=SWIN_CFG, label="13 swinir"):
     del gk, gp, gt
 
     step = build_train_step(model, build_optimizer(model, SWIN_TRAIN_TASK), sc)
-    keys = _wattn_keys(cfg)
-    want = dict.fromkeys(twa.LAUNCHES, 0)
-    want.update(dict.fromkeys(keys, cfg["nlayers"] * cfg["nblocks"]))
+    want = dict.fromkeys(twa.LAUNCHES, cfg["nlayers"] * cfg["nblocks"])
     torch.cuda.reset_peak_memory_stats(dev)
-    total, losses = dict.fromkeys(keys, 0), []
+    total, losses = dict.fromkeys(twa.LAUNCHES, 0), []
     # the Adam steps revisit one batch, so that its loss must fall; on fresh
     # batches the random-weight loss follows each batch's spread instead
     for i in range(NSTEP):
@@ -2184,11 +2173,11 @@ def main() -> int:
     for k, v in phase_edsr_train(dev, args.seed).items():
         launches[k] += v
     launches.update(chain_launches)
-    kern.update(phase_wattn_tiled(dev, rng))
+    kern.update(phase_wattn_t256(dev, rng))
     w16 = phase_swin_serve(dev, args.seed, SWIN16_CFG, "23 swinir-w16")
-    serve_launches["window_attention_tiled"] = w16["window_attention_tiled"]
+    serve_launches["window_attention_t256"] = w16["window_attention"]
     w16 = phase_swin_train(dev, args.seed, SWIN16_CFG, "24 swinir-w16")
-    launches["window_attention_tiled"] = w16["window_attention_tiled"]
+    launches["window_attention_t256"] = w16["window_attention"]
     launches["window_attention_bwd_t256"] = w16["window_attention_bwd"]
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
@@ -2202,7 +2191,7 @@ def main() -> int:
              "ca_skip_bwd": (bwd_src, "sres_tpu/ops/pallas/wino_group_grad.py:324"),
              "window_attention": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
              "window_attention_bwd": (wa_src, "sres_tpu/ops/pallas/window_attention.py:84"),
-             "window_attention_tiled": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
+             "window_attention_t256": (wa_src, "sres_tpu/ops/pallas/window_attention.py:74"),
              "window_attention_bwd_t256": (wa_src,
                                            "sres_tpu/ops/pallas/window_attention.py:84"),
              "fgroup_conv": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
@@ -2211,10 +2200,11 @@ def main() -> int:
              "fgroup_ca_bwd": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
              "wino_chain": (src, "sres_tpu/ops/pallas/winograd_conv.py:339")}
     # the CUDA kernels behind each window-attention entry
+    fwd = ["wattn_fwd_core_kernel", "wattn_fwd_proj_kernel"]
     bwd = ["wattn_bwd_core_kernel", "wattn_bwd_proj_kernel", "sum_partials_kernel"]
-    cuda_kernels = {"window_attention": dict(t=64, kernels=["wattn_fwd_kernel"]),
+    cuda_kernels = {"window_attention": dict(t=64, kernels=fwd),
                     "window_attention_bwd": dict(t=64, kernels=bwd),
-                    "window_attention_tiled": dict(t=256, kernels=["wattn_tiled_fwd_kernel"]),
+                    "window_attention_t256": dict(t=256, kernels=fwd),
                     "window_attention_bwd_t256": dict(t=256, kernels=bwd)}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],

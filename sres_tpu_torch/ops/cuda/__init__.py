@@ -66,17 +66,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_wino_conv_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
     lib.sres_ca_skip_bwd.restype = i
     lib.sres_ca_skip_bwd.argtypes = [vp] * 14 + [i] * 6 + [vp]
-    lib.sres_wattn_tokens.restype = i
-    lib.sres_wattn_tokens.argtypes = []
-    lib.sres_wattn_fwd.restype = i
-    lib.sres_wattn_fwd.argtypes = [vp] * 8 + [i] * 3 + [f] + [i] * 2 + [vp]
     for name in ("sres_wattn_tile", "sres_wattn_max_tokens", "sres_wattn_bwd_proj_rows"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
-    lib.sres_wattn_tiled_fwd.restype = i
-    lib.sres_wattn_tiled_fwd.argtypes = [vp] * 8 + [i] * 4 + [f] + [i] * 2 + [vp]
-    lib.sres_wattn_bwd_rows.restype = i
-    lib.sres_wattn_bwd_rows.argtypes = [i]
+    lib.sres_wattn_rows.restype = i
+    lib.sres_wattn_rows.argtypes = [i]
+    lib.sres_wattn_fwd.restype = i
+    lib.sres_wattn_fwd.argtypes = [vp] * 9 + [i] * 4 + [f] + [i] * 3 + [vp]
     lib.sres_wattn_bwd.restype = i
     lib.sres_wattn_bwd.argtypes = [vp] * 14 + [i] * 4 + [f] + [i] * 4 + [vp]
     lib.sres_fg_tiles.restype = i

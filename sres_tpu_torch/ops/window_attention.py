@@ -20,15 +20,15 @@ columns of qkv hold q, k, v in turn, head hh at [hh·hd, (hh+1)·hd) of each.
 Dispatch is by the device of ``x``: a CPU tensor goes to the ``*_plain``
 twin, a CUDA tensor to a hand-written kernel in ``ops/cuda/
 window_attention.cu``, and anything else raises; a kernel that fails to
-build or launch raises. T = 64 or any multiple of 16 up to 256 (4×4 ...
-16×16 windows); any other T raises ``NotImplementedError``. The forward
-is picked by T: T = 64 (8×8 windows) runs ``wattn_fwd_kernel``, any other
-T ``wattn_tiled_fwd_kernel``, which walks query tiles because a 16×16
-window does not fit an SM. The backward is one design at every T:
-``wattn_bwd_core_kernel`` (a thread-block cluster per head and window
-range, the window's K and V shared through distributed shared memory)
-then ``wattn_bwd_proj_kernel`` (dx and dWqkv) and fixed-order partial
-sums.
+build or launch raises. T is any multiple of 16 up to 256 (4×4 ... 16×16
+windows); any other T raises ``NotImplementedError``. Each direction is one
+design at every T, built on one thread-block cluster per head and window
+range that shares the window's K and V through distributed shared memory
+and keeps the scores in registers: the forward ``wattn_fwd_core_kernel``
+(o for each head, the head's bias rows resident) then
+``wattn_fwd_proj_kernel`` (y = o·Wo + bo); the backward
+``wattn_bwd_core_kernel`` then ``wattn_bwd_proj_kernel`` (dx and dWqkv)
+and fixed-order partial sums.
 
 Rounding points (kernel and twin alike; every product accumulates in f32):
 the JAX kernel keeps qkv, p and the backward's do, ds in f32, but the
@@ -39,11 +39,9 @@ y after it, and dqkv before dwqkv and dx; dbqkv sums the unrounded dqkv.
 In f32 nothing rounds. The weight gradients stay f32 (the JAX VJP casts
 them to the weights' dtype, :229-232).
 
-``LAUNCHES`` counts kernel launches per wrapper and mode (one per wrapper
-call that reached its kernels: ``window_attention`` at T = 64,
-``window_attention_tiled`` at the other T, ``window_attention_bwd`` at
-every T), so a run can show that its main path went through the kernels,
-and which.
+``LAUNCHES`` counts kernel launches per wrapper (one per wrapper call that
+reached its kernels: ``window_attention`` and ``window_attention_bwd``, at
+every T), so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -51,17 +49,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"window_attention": 0, "window_attention_tiled": 0,
-                            "window_attention_bwd": 0}
+LAUNCHES: Dict[str, int] = {"window_attention": 0, "window_attention_bwd": 0}
 
-# The backward's grid, a function of the shape alone (never of the card, so
-# that the bits do not depend on it): about this many core CTAs, one per SM
-# (the kernel fills one), a cluster of nq = ceil(T / rows) per (head, window
-# range). A cluster wants nq SMs of one GPC: an H100 holds at most 30
+# The core kernels' grid, a function of the shape alone (never of the card,
+# so that the bits do not depend on it): about this many CTAs, one per SM
+# (each kernel fills one), a cluster of nq = ceil(T / rows) per (head,
+# window range). A cluster wants nq SMs of one GPC: an H100 holds at most 30
 # clusters of 4 such CTAs at once, so clusters take fewer CTAs, which keeps
 # SwinIR-w16's grid to one wave (28 clusters; 32 took two, 1.64x the time).
-# At most this many projection blocks, each owning one f32 partial of dWqkv.
-_BWD_CTAS, _BWD_CLUSTER_CTAS = 128, 120
+# At most this many backward projection blocks, each owning one f32 partial
+# of dWqkv.
+_CORE_CTAS, _CORE_CLUSTER_CTAS = 128, 120
 _PROJ_BLOCKS = 256
 
 
@@ -148,11 +146,22 @@ def window_attention_bwd_plain(x: torch.Tensor, g: torch.Tensor,
 
 
 # ----------------------------------------------------------- CUDA wrappers
+def _core_grid(rows: int, nw: int, t: int, heads: int) -> Tuple[int, int]:
+    """(nq, nsplit) of the core kernels' grid for ``nw`` windows of ``t``
+    tokens when a CTA owns ``rows`` query rows: clusters of nq CTAs, one per
+    (head, window range), nsplit ranges (1 ≤ nsplit ≤ nw): range s takes
+    the positions from ⌊s·nw / nsplit⌋ up to ⌊(s + 1)·nw / nsplit⌋ of the
+    kernel's window order (the backward's is w, the forward's w sorted by
+    (w % nm, w // nm))."""
+    nq = -(-t // rows)
+    ctas = _CORE_CTAS if nq == 1 else _CORE_CLUSTER_CTAS
+    return nq, max(1, min(nw, ctas // (heads * nq)))
+
+
 def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
     """Everything the kernels take, checked, contiguous, on x's device:
-    weights in x.dtype, the rest f32, each 16-byte aligned (the backward
-    copies rows 16 bytes at a time); returns (ops, nm, tiled), ``tiled``
-    whether T goes to the tiled forward."""
+    weights in x.dtype, the rest f32, each 16-byte aligned (the kernels
+    copy rows 16 bytes at a time); returns (ops, nm)."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x: kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 3:
@@ -161,8 +170,8 @@ def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
     tile, tmax = lib.sres_wattn_tile(), lib.sres_wattn_max_tokens()
     if t % tile or not 0 < t <= tmax:
         raise NotImplementedError(
-            f"the window-attention kernels take T = {lib.sres_wattn_tokens()} or "
-            f"a multiple of {tile} up to {tmax} tokens a window, got T = {t}: "
+            f"the window-attention kernels take a multiple of {tile} up to "
+            f"{tmax} tokens a window, got T = {t}: "
             "not ported (ROADMAP Queue 2 rows 7, 8)")
     if c != lib.sres_channels():
         raise ValueError(f"x: kernel takes (NW, {t}, {lib.sres_channels()}), "
@@ -191,7 +200,7 @@ def _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads):
         mask = _aligned(mask.to(f32).contiguous())
         nm = mask.shape[0]
     ops.append(mask)
-    return ops, nm, t != lib.sres_wattn_tokens()
+    return ops, nm
 
 
 def _aligned(a: torch.Tensor) -> torch.Tensor:
@@ -211,26 +220,24 @@ def _stream(dev: torch.device) -> int:
 def _fwd_cuda(x, wqkv, bqkv, wo, bo, bias, mask, heads):
     from sres_tpu_torch.ops import cuda
     lib = cuda.load()
-    ops, nm, tiled = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
+    ops, nm = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
     x = ops[0]
     nw, t, c = x.shape
-    y = torch.empty_like(x)
-    ptrs = [_ptr(a) for a in ops] + [y.data_ptr()]
-    tail = (heads, _scale(c, heads), int(x.dtype == torch.bfloat16),
-            x.device.index or 0, _stream(x.device))
-    if tiled:
-        err, key = lib.sres_wattn_tiled_fwd(*ptrs, nw, t, nm, *tail), "window_attention_tiled"
-    else:
-        err, key = lib.sres_wattn_fwd(*ptrs, nw, nm, *tail), "window_attention"
-    cuda.check(err, f"{key} kernel")
-    LAUNCHES[key] += 1
+    bf16 = int(x.dtype == torch.bfloat16)
+    _, nsplit = _core_grid(lib.sres_wattn_rows(bf16), nw, t, heads)
+    y, o = torch.empty_like(x), torch.empty_like(x)   # o: every head's p·v
+    err = lib.sres_wattn_fwd(
+        *[_ptr(a) for a in ops], y.data_ptr(), o.data_ptr(), nw, t, nm, heads,
+        _scale(c, heads), nsplit, bf16, x.device.index or 0, _stream(x.device))
+    cuda.check(err, "window_attention kernels")
+    LAUNCHES["window_attention"] += 1
     return y
 
 
 def _bwd_cuda(x, g, wqkv, bqkv, wo, bo, bias, mask, heads):
     from sres_tpu_torch.ops import cuda
     lib = cuda.load()
-    ops, nm, _ = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
+    ops, nm = _operands(lib, x, wqkv, bqkv, wo, bo, bias, mask, heads)
     x = ops[0]
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must be shaped like x on {x.device}, got "
@@ -238,9 +245,7 @@ def _bwd_cuda(x, g, wqkv, bqkv, wo, bo, bias, mask, heads):
     g = _aligned(g.to(x.dtype).contiguous())
     nw, t, c = x.shape
     bf16 = int(x.dtype == torch.bfloat16)
-    nq = -(-t // lib.sres_wattn_bwd_rows(bf16))
-    ctas = _BWD_CTAS if nq == 1 else _BWD_CLUSTER_CTAS
-    nsplit = max(1, min(nw, ctas // (heads * nq)))
+    nq, nsplit = _core_grid(lib.sres_wattn_rows(bf16), nw, t, heads)
     nproj = min(-(-nw * t // lib.sres_wattn_bwd_proj_rows()), _PROJ_BLOCKS)
     sizes = [3 * c * c, 3 * c, c * c, c, heads * t * t]
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)

@@ -283,8 +283,8 @@ def _tiled_inputs(dev, t, nw, tile, heads, seed):
 
 
 def _tiled_check(dev, t, nw, tile, heads, seed):
-    """The tiled forward and backward kernels against their twins, f32 and
-    bf16, each launched twice and only on its tiled key."""
+    """The forward and backward kernels against their twins, f32 and bf16,
+    each launched twice on its key."""
     from sres_tpu_torch.ops import window_attention as twa
     (x, *ws), mask = _tiled_inputs(dev, t, nw, tile, heads, seed)
     g = _t(np.random.default_rng(seed + 1), tuple(x.shape), dev)
@@ -293,12 +293,12 @@ def _tiled_check(dev, t, nw, tile, heads, seed):
            lambda x_: twa.window_attention_plain(x_, *ws, mask, heads),
            (x,), (x.bfloat16(),))
     run = lambda fn, dt: fn(x.to(dt), g.to(dt), *ws, mask, heads)
-    _check_many(f"tiled bwd t={t} nw={nw} tile={tile}",
+    _check_many(f"bwd t={t} nw={nw} tile={tile}",
                 run(twa.window_attention_bwd, torch.float32),
                 run(twa.window_attention_bwd_plain, torch.float32),
                 run(twa.window_attention_bwd, torch.bfloat16),
                 run(twa.window_attention_bwd_plain, torch.bfloat16))
-    want = dict(before, window_attention_tiled=before["window_attention_tiled"] + 2,
+    want = dict(window_attention=before["window_attention"] + 2,
                 window_attention_bwd=before["window_attention_bwd"] + 2)
     assert twa.LAUNCHES == want
 
@@ -319,6 +319,39 @@ def test_window_attention_other_tiled_t_matches_twin(dev, t, nw, tile, heads):
     """4×4 (T = 16) and 12×12 (T = 144, a query tile cut short; head width
     32) windows, shifted."""
     _tiled_check(dev, t, nw, tile, heads, 51)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,heads,nw,tile", [
+    (64, 4, 1, (8, 8)), (64, 4, 7, (8, 56)), (64, 4, 433, (8, 8)),
+    (256, 4, 1, (16, 16)), (256, 4, 7, (16, 112)), (256, 4, 433, (16, 16)),
+    (64, 2, 6, None), (256, 2, 36, (96, 96)), (144, 2, 433, (12, 12)), (16, 2, 6, None)])
+def test_window_attention_every_t_matches_twin(dev, t, heads, nw, tile):
+    """The forward (one cluster design at every T) against its twin, f32
+    and bf16: one window; seven under a seven-window mask (nm = 7); 433
+    under a one-window mask (nm = 1), which the window ranges do not divide
+    evenly; head width 32 (the largest shared-memory map at T = 256); T =
+    144, whose cluster's last CTA holds 16 query rows (48 in f32)."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _tiled_inputs(dev, t, nw, tile, heads, 58 + t)
+    launches = twa.LAUNCHES["window_attention"]
+    _check(lambda x_: twa.window_attention(x_, *ws, mask, heads),
+           lambda x_: twa.window_attention_plain(x_, *ws, mask, heads),
+           (x,), (x.bfloat16(),))
+    assert twa.LAUNCHES["window_attention"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,nw,tile", [(64, 1728, (96, 96)), (256, 432, (96, 96))])
+def test_window_attention_is_deterministic(dev, t, nw, tile):
+    """Two forward runs give the same bits, at SwinIR's T = 64 and
+    SwinIR-w16's T = 256 shapes, shifted."""
+    from sres_tpu_torch.ops import window_attention as twa
+    (x, *ws), mask = _tiled_inputs(dev, t, nw, tile, 4, 59)
+    a = twa.window_attention(x.bfloat16(), *ws, mask, 4)
+    b = twa.window_attention(x.bfloat16(), *ws, mask, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -139,3 +139,19 @@ def test_t256_twins_match_jax_kernel():
     for name, a, w in zip(("x", "wqkv", "bqkv", "wo", "bo", "bias"), ts, want_g):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), rtol=1e-3, atol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("rows", [64, 32])
+def test_core_grid_covers_every_window_once(rows):
+    """The core kernels' window ranges (range s from ⌊s·nw / nsplit⌋ to
+    ⌊(s + 1)·nw / nsplit⌋, nsplit from ``_core_grid``): every window lands
+    in exactly one range and no range is empty, at SwinIR's and
+    SwinIR-w16's window counts and at counts the ranges do not divide."""
+    for t in (16, 64, 144, 256):
+        for heads in (2, 4):
+            for nw in (1, 6, 7, 432, 433, 1728):
+                nq, nsplit = twa._core_grid(rows, nw, t, heads)
+                assert nq == -(-t // rows) and 1 <= nsplit <= nw
+                cuts = [s * nw // nsplit for s in range(nsplit + 1)]
+                assert cuts[0] == 0 and cuts[-1] == nw
+                assert all(a < b for a, b in zip(cuts, cuts[1:]))
