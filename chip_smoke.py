@@ -55,12 +55,14 @@ Phases, one line each (every line carries the card's name and power limit):
    trained tiles/s and peak memory against the composition attention, and
    a profile;
 14. the direct-conv group kernels of ``model.fused`` against their plain
-   twins at (72, 64, 48, 48) and a ragged (3, 64, 50, 38): the conv (as
-   conv1 with ReLU, as conv2 with f32 output and CA partials, with a
-   residual, and as the dgrads of conv2 and conv1: CA prologue and mask,
-   carried cotangent and group skip), the weight gradient (plain, CA
-   prologue, db from partials), gate + skip and the CA backward; timed
-   against ``F.conv2d`` and cuDNN's dgrad and wgrad;
+   twins at (72, 64, 48, 48) and a ragged (3, 64, 50, 38): the conv
+   (``fg_conv_wgmma_kernel``: as conv1 with ReLU, as conv2 with f32 output
+   and CA partials, with a residual, and as the dgrads of conv2 and conv1:
+   CA prologue and mask, carried cotangent and group skip), the weight
+   gradient (``fg_wgrad_wgmma_kernel``: plain, CA prologue, db from
+   partials), gate + skip and the CA backward; each mode timed in device
+   time (``device_ms``; back-to-back events beside) against its bound and
+   against ``F.conv2d`` and cuDNN's dgrad and wgrad, channels_last weights;
 15. one fused group (20 RCABs + trailing conv, b72): forward, stash and
    gradients, kernels against twins (the rule of phase 8 for flipped
    gates; the backward kernels alone on one shared stash), timed against
@@ -122,7 +124,10 @@ core products over 989 TFLOP/s (bf16), for the timed call's shapes.
 ``library_ms`` times one PyTorch call computing the same function where one
 exists (cuDNN's conv and conv backward), and for window attention the
 composition above; the port never calls them. For the direct-conv group
-kernels ``bound_ms`` is that of the timed mode (the conv as conv1).
+kernels ``bound_ms`` is that of the timed mode (the conv as conv1, the
+weight gradient plain), each mode's time in ``modes``; their times and
+library times are device times (``device_ms``: the stream is held while
+the host queues the calls).
 
 The last three lines are a JSON object describing every kernel of the path
 (``launches`` counted over the three steps of each train slice, phases 9,
@@ -262,6 +267,30 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return s.elapsed_time(e) / iters
 
 
+# about 25 ms of a held stream at the H100's clock: longer than the host
+# takes to queue a timed run of wrapper calls
+SLEEP_CYCLES = 50_000_000
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device ms per call: ``torch.cuda._sleep`` holds the stream while
+    the host queues the ``iters`` calls, so the CUDA events time the
+    device's work and not the wrapper's host cost (``time_ms`` times calls
+    back to back, and so includes it for kernels shorter than the wrapper)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
+
+
 def smooth_fields(rng: np.random.Generator, n: int, size: int,
                   ncomp: int = 8) -> np.ndarray:
     """(n, 1, size, size) f32 smooth multi-scale sinusoid fields: the recipe
@@ -300,6 +329,21 @@ def profile_device(label, fn, top: int = 12) -> float:
     return total
 
 
+def short_name(mangled: str) -> str:
+    """A kernel's mangled name shortened to its last nested name and the
+    start of its template arguments (``fg_conv_wgmma_kernelILb0ELb1ELb0``)."""
+    i, last = mangled.find("_ZN") + 3, ""
+    if i < 3:
+        return mangled[:60]
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        last, i = mangled[j:j + n], j + n
+    return last + mangled[i:i + 12] if last else mangled[:60]
+
+
 # --------------------------------------------------------------- phases
 def phase_toolchain():
     import torch
@@ -309,8 +353,13 @@ def phase_toolchain():
                          ).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
     cuda.load()
-    ptxas = [ln.strip() for ln in cuda.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    # each kernel's registers and spills, under a short form of its name
+    ptxas, name = [], ""
+    for ln in cuda.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = short_name(ln.split("'")[1])
+        elif "registers" in ln or "spill" in ln:
+            ptxas.append(f"{name}: {ln.strip()}")
     say("1 toolchain", python=platform.python_version(), torch=torch.__version__,
         cuda=torch.version.cuda, nvcc=ver, ninja=shutil.which("ninja"),
         build_s=cuda.build_seconds, load_s=time.perf_counter() - t0,
@@ -1331,54 +1380,68 @@ def phase_fg_kernels(dev, rng):
     check("fgroup_ca_bwd", "ca backward", outs)
     del outs
 
-    # timing at the serving shape, bf16
+    # timing at the serving shape, bf16, in device time (device_ms), with the
+    # back-to-back events of time_ms beside; cuDNN gets channels_last weights
     xb, gb, mb = o["x"].bfloat16(), o["r"].bfloat16(), o["m"].bfloat16()
-    wkb, wb, bb = o["wk"].bfloat16(), o["w"].bfloat16(), o["b"].bfloat16()
+    wkb, bb = o["wk"].bfloat16(), o["b"].bfloat16()
+    wb = o["w"].bfloat16().contiguous(memory_format=torch.channels_last)
     n, act = xb.numel(), 2 * xb.numel()              # elements; bf16 bytes of one
     flops = 2.0 * 9 * n * c                          # one direct conv's products
     res = {}
-    t = dict(
-        relu=time_ms(lambda: fg.fgroup_conv(xb, wkb, o["b"], relu=True)),
-        partials_f32_out=time_ms(lambda: fg.fgroup_conv(xb, wkb, o["b"], out_dtype=f32,
-                                                        partials=True)),
-        dgrad_mask=time_ms(lambda: fg.fgroup_conv(xb, wkb, gate=o["gate"], ds=o["ds"],
-                                                  mask=mb, partials=True)),
-        dgrad_carry=time_ms(lambda: fg.fgroup_conv(xb, wkb, res=gb, res2=mb)))
-    plain_ms = time_ms(lambda: fg.fgroup_conv_plain(xb, wkb, o["b"], relu=True), iters=3)
-    lib_ms = time_ms(lambda: F.conv2d(xb, wb, bb, padding=1))
-    lib_dgrad_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
-        gb, xb, wb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False]))
+    convs = dict(
+        relu=lambda: fg.fgroup_conv(xb, wkb, o["b"], relu=True),
+        partials_f32_out=lambda: fg.fgroup_conv(xb, wkb, o["b"], out_dtype=f32, partials=True),
+        residual=lambda: fg.fgroup_conv(xb, wkb, o["b"], res=gb),
+        dgrad_mask=lambda: fg.fgroup_conv(xb, wkb, gate=o["gate"], ds=o["ds"], mask=mb,
+                                          partials=True),
+        dgrad_carry=lambda: fg.fgroup_conv(xb, wkb, res=gb, res2=mb))
+    t = {k: device_ms(f) for k, f in convs.items()}
+    t_events = {k: time_ms(f) for k, f in convs.items()}
+    plain_ms = device_ms(lambda: fg.fgroup_conv_plain(xb, wkb, o["b"], relu=True), iters=3)
+    lib = dict(
+        conv2d=lambda: F.conv2d(xb, wb, bb, padding=1),
+        dgrad=lambda: torch.ops.aten.convolution_backward(
+            gb, xb, wb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, False, False]),
+        wgrad=lambda: torch.ops.aten.convolution_backward(
+            gb, xb, wb, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, True]),
+        dgrad_wgrad=lambda: torch.ops.aten.convolution_backward(
+            gb, xb, wb, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, False]))
+    lib_ms = {k: device_ms(f) for k, f in lib.items()}
+    lib_events = {k: time_ms(f) for k, f in lib.items()}
     # x read and y written (bf16), weights, bias; conv2 writes f32; the
-    # dgrads also read the mask, or the carried cotangent and the skip
+    # residual conv and the dgrads also read res, the mask, or the carried
+    # cotangent and the skip
     wbytes = 2 * wkb.numel() + 4 * c
-    nbytes = dict(relu=2 * act, partials_f32_out=3 * act, dgrad_mask=3 * act,
+    nbytes = dict(relu=2 * act, partials_f32_out=3 * act, residual=3 * act, dgrad_mask=3 * act,
                   dgrad_carry=4 * act)
     bounds = {k: bound_ms(v + wbytes, flops) for k, v in nbytes.items()}
     res["fgroup_conv"] = dict(max_abs_err=worst["fgroup_conv"], ms=t["relu"],
                               plain_ms=plain_ms, bound_ms=bounds["relu"],
                               bound_by=bound_by(nbytes["relu"] + wbytes, flops),
-                              library_ms=lib_ms)
-    say("14 kernel fgroup_conv timing", shape=SHAPE, dtype="bf16", ms=t,
-        plain_ms=plain_ms, bound_ms=bounds, flops=flops,
-        library_ms_cudnn_conv2d_channels_last=lib_ms,
-        library_ms_cudnn_dgrad=lib_dgrad_ms)
+                              library_ms=lib_ms["conv2d"], modes=t, mode_bound_ms=bounds,
+                              kernels=["fg_conv_wgmma_kernel"])
+    say("14 kernel fgroup_conv timing", shape=SHAPE, dtype="bf16", device_ms=t,
+        events_ms=t_events, plain_ms=plain_ms, bound_ms=bounds, flops=flops,
+        library_device_ms=lib_ms, library_events_ms=lib_events)
 
-    ms = time_ms(lambda: fg.fgroup_wgrad(xb, gb))
-    ms_pro = time_ms(lambda: fg.fgroup_wgrad(xb, gb, gate=o["gate"], ds=o["ds"]))
-    plain_ms = time_ms(lambda: fg.fgroup_wgrad_plain(xb, gb), iters=3)
-    lib_ms = time_ms(lambda: torch.ops.aten.convolution_backward(
-        gb, xb, wb, [c], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, True]))
+    wgrads = dict(plain=lambda: fg.fgroup_wgrad(xb, gb),
+                  prologue=lambda: fg.fgroup_wgrad(xb, gb, gate=o["gate"], ds=o["ds"]),
+                  db_part=lambda: fg.fgroup_wgrad(xb, gb, db_part=part))
+    t = {k: device_ms(f) for k, f in wgrads.items()}
+    t_events = {k: time_ms(f) for k, f in wgrads.items()}
+    plain_ms = device_ms(lambda: fg.fgroup_wgrad_plain(xb, gb), iters=3)
     nbytes = 2 * act + 4 * (9 * c * c + c)            # x, g read; dW, db written f32
-    res["fgroup_wgrad"] = dict(max_abs_err=worst["fgroup_wgrad"], ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms(nbytes, flops),
-                               bound_by=bound_by(nbytes, flops), library_ms=lib_ms)
-    say("14 kernel fgroup_wgrad timing", shape=SHAPE, dtype="bf16", ms=ms,
-        prologue_ms=ms_pro, plain_ms=plain_ms, bound_ms=res["fgroup_wgrad"]["bound_ms"],
-        library_ms_cudnn_wgrad=lib_ms)
+    res["fgroup_wgrad"] = dict(max_abs_err=worst["fgroup_wgrad"], ms=t["plain"],
+                               plain_ms=plain_ms, bound_ms=bound_ms(nbytes, flops),
+                               bound_by=bound_by(nbytes, flops), library_ms=lib_ms["wgrad"],
+                               modes=t, kernels=["fg_wgrad_wgmma_kernel"])
+    say("14 kernel fgroup_wgrad timing", shape=SHAPE, dtype="bf16", device_ms=t,
+        events_ms=t_events, plain_ms=plain_ms, bound_ms=res["fgroup_wgrad"]["bound_ms"],
+        library_device_ms=lib_ms["wgrad"])
 
-    ms = time_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca))
-    ms_stash = time_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca, stash_c=True))
-    plain_ms = time_ms(lambda: fg.fgroup_ca_plain(xb, cf, part, *ca))
+    ms = device_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca))
+    ms_stash = device_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca, stash_c=True))
+    plain_ms = device_ms(lambda: fg.fgroup_ca_plain(xb, cf, part, *ca))
     nbytes = act + 4 * n + act                        # x (bf16), c (f32) read; x' written
     res["fgroup_ca"] = dict(max_abs_err=worst["fgroup_ca"], ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms(nbytes, 0.0), bound_by="bytes",
@@ -1387,8 +1450,8 @@ def phase_fg_kernels(dev, rng):
         stash_ms=ms_stash, plain_ms=plain_ms, bound_ms=res["fgroup_ca"]["bound_ms"])
 
     cb = cf.bfloat16()
-    ms = time_ms(lambda: fg.fgroup_ca_bwd(gb, cb, gate, *ca))
-    plain_ms = time_ms(lambda: fg.fgroup_ca_bwd_plain(gb, cb, gate, *ca))
+    ms = device_ms(lambda: fg.fgroup_ca_bwd(gb, cb, gate, *ca))
+    plain_ms = device_ms(lambda: fg.fgroup_ca_bwd_plain(gb, cb, gate, *ca))
     nbytes = 2 * act                                  # g and c read (bf16)
     res["fgroup_ca_bwd"] = dict(max_abs_err=worst["fgroup_ca_bwd"], ms=ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms(nbytes, 0.0),

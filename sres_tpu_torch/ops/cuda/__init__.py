@@ -76,13 +76,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_wattn_bwd.restype = i
     lib.sres_wattn_bwd.argtypes = [vp] * 14 + [i] * 4 + [f] + [i] * 4 + [vp]
     lib.sres_fg_tiles.restype = i
-    lib.sres_fg_tiles.argtypes = [i, i]
+    lib.sres_fg_tiles.argtypes = [i, i, i]
     lib.sres_fg_conv.restype = i
     lib.sres_fg_conv.argtypes = [vp] * 10 + [i] * 7 + [vp]
     lib.sres_fg_ca.restype = i
     lib.sres_fg_ca.argtypes = [vp] * 3 + [i] + [vp] * 7 + [i] * 6 + [vp]
+    lib.sres_fg_wgrad_scratch.restype = i
+    lib.sres_fg_wgrad_scratch.argtypes = [i] * 5
     lib.sres_fg_wgrad.restype = i
-    lib.sres_fg_wgrad.argtypes = [vp] * 5 + [i] + [vp] * 4 + [i] * 6 + [vp]
+    lib.sres_fg_wgrad.argtypes = [vp] * 5 + [i] + [vp] * 3 + [i] * 5 + [vp]
     lib.sres_fg_ca_bwd.restype = i
     lib.sres_fg_ca_bwd.argtypes = [vp] * 13 + [i] * 6 + [vp]
     return lib

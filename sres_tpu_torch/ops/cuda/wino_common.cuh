@@ -1,8 +1,9 @@
 // Helpers shared by the kernels of this directory (winograd.cu,
-// winograd_bwd.cu, window_attention.cu): channel count, type conversions,
-// the transform programs of sres_tpu/ops/winograd.py (same operation
-// order), the input transform of one (tile, channel), the bf16 mma.sync
-// wrapper, cp.async and ldmatrix, the fixed-order sum of f32 partials.
+// winograd_bwd.cu, window_attention.cu, fused_group.cu): channel count,
+// type conversions, the transform programs of sres_tpu/ops/winograd.py
+// (same operation order), the input transform of one (tile, channel), the
+// bf16 mma.sync wrapper, cp.async, ldmatrix and the mbarrier wait, the
+// fixed-order sum of f32 partials.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -245,6 +246,22 @@ __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[4], const void* p) {
                  : "=r"(r[0]), "=r"(r[1])
                  : "r"(smem_u32(p))
                  : "memory");
+}
+
+// Wait for phase `parity` of an mbarrier in this CTA's shared memory; traps
+// (a launch error, not a hang) if it never completes.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i > (1ll << 24)) __trap();
+  }
 }
 
 // Opt in to more than 48 KB of dynamic shared memory, once per kernel.

@@ -500,22 +500,6 @@ wino_bwd_dx_kernel(const G* __restrict__ g, const T* __restrict__ y, const void*
 }
 
 // ------------------------------------------------------ (2) dU kernel
-// Wait for phase `parity` of an mbarrier in this CTA's shared memory; traps
-// (a launch error, not a hang) if it never completes.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (long long i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i > (1ll << 24)) __trap();
-  }
-}
-
 // Grid: kDuBlocks x ranges, a cluster per range. CTA cb of a cluster holds
 // dU[t][16 cb + i][co] for every tap t over the range's tiles, in passes of
 // TB tiles: it recomputes V of its 16 input channels and dM of output

@@ -21,8 +21,9 @@ attention:
   weights it is also the adjoint (dgrad) of a conv.
 - ``fgroup_ca``: sums the conv's per-tile partials in a fixed order →
   mean → 1×1 → ReLU → 1×1 → sigmoid gate, then x + c·gate.
-- ``fgroup_wgrad``: dW[tap] = Σ_pixels x_shift(tap)ᵀ · g and db = Σ g, per
-  block an f32 partial, then a fixed-order reduction.
+- ``fgroup_wgrad``: dW[tap] = Σ_pixels x_shift(tap)ᵀ · g and db = Σ g; in
+  bf16 one launch whose clusters reduce on chip in a fixed order (in f32
+  per-block partials and a fixed-order sum).
 - ``fgroup_ca_bwd``: the channel-attention backward (ds = dm/npix and the
   CA weight gradients).
 
@@ -65,9 +66,6 @@ LAUNCHES: Dict[str, int] = {"fgroup_conv": 0, "fgroup_ca": 0, "fgroup_wgrad": 0,
 # pooling pass
 _CA_GATE_SPLIT = 16
 _CA_POOL_SPLIT = 8
-# pixel chunks of the weight gradient (× 3 tap rows ≈ two blocks per SM of
-# an H100)
-_WGRAD_SPLIT = 88
 
 
 def reset_launches() -> None:
@@ -192,13 +190,14 @@ def _like(a: Optional[torch.Tensor], x: torch.Tensor, name: str
 
 def _vec(a: Optional[torch.Tensor], shape: Tuple[int, ...], dev: torch.device,
          name: str) -> Optional[torch.Tensor]:
-    """``a`` as a contiguous f32 tensor of ``shape`` on ``dev``."""
+    """``a`` as a contiguous, 16-byte aligned f32 tensor of ``shape`` on ``dev``."""
     if a is None:
         return None
     if tuple(a.shape) != shape or a.device != dev:
         raise ValueError(f"{name} must be {shape} on {dev}, got "
                          f"{tuple(a.shape)} on {a.device}")
-    return a.float().contiguous()
+    a = a.float().contiguous()
+    return a.clone() if a.data_ptr() % 16 else a
 
 
 def _gate_ds(gate, ds, n: int, c: int, dev: torch.device):
@@ -229,12 +228,13 @@ def _conv_cuda(x, wk, bias, relu, out_dtype, gate, ds, mask, res, res2, partials
     mask, res, res2 = (_like(a, x, nm) for a, nm in ((mask, "mask"), (res, "res"),
                                                       (res2, "res2")))
     y = torch.empty_like(x, dtype=out_dtype, memory_format=torch.channels_last)
-    part = (torch.empty((n, lib.sres_fg_tiles(h, w), c), dtype=f32, device=x.device)
+    bf = int(xdt == torch.bfloat16)
+    part = (torch.empty((n, lib.sres_fg_tiles(h, w, bf), c), dtype=f32, device=x.device)
             if partials else None)
     err = lib.sres_fg_conv(
         x.data_ptr(), wk.data_ptr(), _ptr(bias), _ptr(gate), _ptr(ds), _ptr(mask),
-        _ptr(res), _ptr(res2), y.data_ptr(), _ptr(part), n, h, w,
-        int(xdt == torch.bfloat16), int(out_dtype == f32), int(relu),
+        _ptr(res), _ptr(res2), y.data_ptr(), _ptr(part), n, h, w, bf,
+        int(out_dtype == f32), int(relu),
         x.device.index or 0, _stream(x.device))
     cuda.check(err, "fgroup_conv kernel")
     LAUNCHES["fgroup_conv"] += 1
@@ -295,15 +295,16 @@ def _wgrad_cuda(x, g, gate, ds, db_part):
                 or db_part.device != x.device):
             raise ValueError(f"db_part must be (N, P, {c}) float32 on {x.device}")
         db_part = db_part.contiguous()
-    tiles = n * lib.sres_fg_tiles(h, w)
-    nsplit = max(1, min(tiles, _WGRAD_SPLIT))
+    bf, dev = int(x.dtype == torch.bfloat16), x.device.index or 0
+    nscratch = lib.sres_fg_wgrad_scratch(n, h, w, bf, dev)
+    if nscratch < 0:
+        cuda.check(-nscratch, "fgroup_wgrad grid")
     emp = lambda *s: torch.empty(s, dtype=f32, device=x.device)
-    wpart, dbpart, dw, db = emp(9, nsplit, c, c), emp(nsplit, c), emp(9, c, c), emp(c)
+    scratch, dw, db = emp(nscratch), emp(9, c, c), emp(c)
     err = lib.sres_fg_wgrad(
         x.data_ptr(), g.data_ptr(), _ptr(gate), _ptr(ds), _ptr(db_part),
         db_part.shape[0] * db_part.shape[1] if db_part is not None else 0,
-        wpart.data_ptr(), dbpart.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        n, h, w, nsplit, int(x.dtype == torch.bfloat16), x.device.index or 0,
+        scratch.data_ptr(), dw.data_ptr(), db.data_ptr(), n, h, w, bf, dev,
         _stream(x.device))
     cuda.check(err, "fgroup_wgrad kernel")
     LAUNCHES["fgroup_wgrad"] += 1

@@ -444,29 +444,46 @@ def _dt(args, dt):
     return [a.to(dt) if a is not None and a.dim() == 4 else a for a in args]
 
 
+# (3, 64, 16, 32) a full tile grid, (2, 64, 13, 21) a ragged one, (1, 64, 8,
+# 8) fewer tiles than blocks, (5, 64, 40, 56) block ranges across images
+FG_SHAPES = [(3, 64, 16, 32), (2, 64, 13, 21), (1, 64, 8, 8), (5, 64, 40, 56)]
+
+
+def _fg_conv_call(fn, mode, x, r, m, wk, b, gate, ds):
+    """One fgroup_conv call of ``mode``; partials summed per sample."""
+    if mode == "relu":                         # conv1
+        return (fn(x, wk, b, relu=True),)
+    if mode == "partials":                     # conv2
+        y, p = fn(x, wk, b, out_dtype=torch.float32, partials=True)
+        return y, p.sum(1)
+    if mode == "residual":                     # bias and two residuals
+        return (fn(x, wk, b, res=r, res2=m),)
+    if mode == "dgrad":                        # conv2's dgrad
+        y, p = fn(x, wk, gate=gate, ds=ds, mask=m, partials=True)
+        return y, p.sum(1)
+    if mode == "carry":                        # conv1's dgrad
+        return (fn(x, wk, res=r),)
+    if mode == "carry_skip":                   # conv1's dgrad at RCAB 0
+        return (fn(x, wk, res=r, res2=m),)
+    return (fn(x, wk),)                        # the trailing conv's dgrad
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 64, 16, 32), (2, 64, 13, 21)])
-@pytest.mark.parametrize("mode", ["relu", "partials", "residual", "dgrad"])
+@pytest.mark.parametrize("shape", FG_SHAPES)
+@pytest.mark.parametrize("mode", ["relu", "partials", "residual", "dgrad", "carry",
+                                  "carry_skip", "plain"])
 def test_fgroup_conv_matches_twin(dev, shape, mode):
     """Kernel (a) in each epilogue: bias + ReLU; f32 output with the per-tile
-    sums (compared summed per sample); two residuals; the CA prologue with
-    the mask and partials (the dgrad of conv2). A full and a ragged tile
-    grid."""
+    sums (compared summed per sample); bias and two residuals; the CA
+    prologue with the mask and partials (the dgrad of conv2); the carried
+    cotangent (conv1's dgrad), with the group skip; none (the trailing
+    conv's dgrad)."""
     from sres_tpu_torch.ops import fused_group as fg
     x, r, m, wk, b, gate, ds = _fg_operands(dev, shape, 50)
 
     def run(fn, dt):
         xx, rr, mm = _dt((x, r, m), dt)
-        w = wk.to(dt)
-        if mode == "relu":
-            return (fn(xx, w, b, relu=True),)
-        if mode == "partials":
-            y, p = fn(xx, w, b, out_dtype=torch.float32, partials=True)
-            return y, p.sum(1)
-        if mode == "residual":
-            return (fn(xx, w, b, res=rr, res2=mm),)
-        y, p = fn(xx, w, gate=gate, ds=ds, mask=mm, partials=True)
-        return y, p.sum(1)
+        return _fg_conv_call(fn, mode, xx, rr, mm, wk.to(dt), b, gate, ds)
 
     launches = fg.LAUNCHES["fgroup_conv"]
     _check_many(f"fgroup_conv {mode} {shape}", run(fg.fgroup_conv, torch.float32),
@@ -477,7 +494,7 @@ def test_fgroup_conv_matches_twin(dev, shape, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 64, 16, 32), (2, 64, 13, 21)])
+@pytest.mark.parametrize("shape", FG_SHAPES)
 @pytest.mark.parametrize("mode", ["plain", "prologue", "db_part"])
 def test_fgroup_wgrad_matches_twin(dev, shape, mode):
     """Kernel (c): dW and db, with the CA prologue, and db from a conv's
@@ -498,6 +515,27 @@ def test_fgroup_wgrad_matches_twin(dev, shape, mode):
                 run(fg.fgroup_wgrad, torch.bfloat16),
                 run(fg.fgroup_wgrad_plain, torch.bfloat16))
     assert fg.LAUNCHES["fgroup_wgrad"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 64, 40, 56), (1, 64, 8, 8)])
+def test_fgroup_conv_and_wgrad_are_deterministic(dev, shape):
+    """The conv's output and partials, and dw, db in every wgrad mode, are
+    the same bits on two calls (fixed-order sums, no float atomics)."""
+    from sres_tpu_torch.ops import fused_group as fg
+    x, r, m, wk, b, gate, ds = _fg_operands(dev, shape, 56)
+    xb, rb, mb, wb = x.bfloat16(), r.bfloat16(), m.bfloat16(), wk.bfloat16()
+    part = _t(np.random.default_rng(57), (shape[0], 7, 64), dev)
+    calls = [lambda: fg.fgroup_conv(xb, wb, gate=gate, ds=ds, mask=mb, partials=True),
+             lambda: fg.fgroup_conv(xb, wb, b, out_dtype=torch.float32, partials=True),
+             lambda: fg.fgroup_wgrad(xb, rb),
+             lambda: fg.fgroup_wgrad(xb, rb, gate=gate, ds=ds),
+             lambda: fg.fgroup_wgrad(xb, rb, db_part=part)]
+    for call in calls:
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for a, b_ in zip(first, second):
+            assert torch.equal(a, b_)
 
 
 @pytest.mark.cuda
