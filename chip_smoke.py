@@ -7,8 +7,14 @@ Needs one CUDA card, ``nvcc`` and this checkout; imports no JAX and no YAML.
 Phases, one line each (every line carries the card's name and power limit):
 
 1. toolchain: torch / CUDA / nvcc versions, the kernel build time;
-2. kernel (a), the Winograd conv, against its plain twin at (72, 64, 48, 48),
-   m ∈ {2, 4}, ReLU on/off, with and without the residual epilogue;
+2. kernel (a), the Winograd conv (``wino_conv_wgmma_kernel``: clusters of two
+   blocks, half of U resident in each), against its plain twin at (72, 64,
+   48, 48), m ∈ {2, 4}, ReLU on/off, with and without the residual
+   epilogue; U in the kernels' order (``WinoU``, as the module caches keep
+   it) gives the natural U's bits; in device time (``device_ms``) in the
+   modes the trunks call (ReLU, bias only, the residual at res_scale 1
+   and 0.1; ReLU at m=2), against ``F.conv2d`` with bias on channels_last
+   bf16 weights, the back-to-back events beside;
 3. kernel (b), channel attention + block skip, against its plain twin;
 4. one full residual group (20 RCABs + trailing conv, m=4, batch 72);
 5. the serving slice: RCAN-10-20-64 ×4 with ``winograd: 4``, bf16 compute,
@@ -81,8 +87,9 @@ Phases, one line each (every line carries the card's name and power limit):
    and at res_scale 1 the unscaled epilogue's bits; the conv chain
    (``wino_chain_fwd``, K = 20 convs + ReLU in one cooperative launch, m=4,
    bf16 and f32) against its twin, bit for bit against K ``wino_conv``
-   launches, and timed against them, the twin and K channels_last
-   ``F.conv2d`` + ReLU, with its bound and a device-time profile;
+   launches, and timed in device time against them (U in the kernels'
+   order), the twin and K ``F.conv2d`` + ReLU on channels_last weights,
+   with its bound and a device-time profile;
 19. one EDSR trunk (16 ResBlocks + body conv + skip, the ungated group,
    m=4, b72): forward, stash and gradients, kernels against twins (the rule
    of phase 8 for flipped gates; the backward kernels alone on one shared
@@ -371,7 +378,7 @@ def phase_conv(dev, rng):
     import torch
     import torch.nn.functional as F
     from sres_tpu_torch.ops.winograd import transform_weights
-    from sres_tpu_torch.ops.winograd_conv import wino_conv, wino_conv_plain
+    from sres_tpu_torch.ops.winograd_conv import kernel_u, wino_conv, wino_conv_plain
     c = SHAPE[1]
     # channels_last: the memory format the model's trunk hands the kernels
     cl = dict(memory_format=torch.channels_last)
@@ -395,19 +402,42 @@ def phase_conv(dev, rng):
                 say("2 kernel wino_conv", **out)
                 if m == 4:
                     worst = max(worst, out["bf16_vs_plain_abs"])
-    u4 = transform_weights(w, 4).bfloat16()
-    ms = time_ms(lambda: wino_conv(xb, u4, b, 4, True))
-    plain_ms = time_ms(lambda: wino_conv_plain(xb, u4, b, 4, True))
-    ms_f32 = time_ms(lambda: wino_conv(x, u4.float(), b, 4, True))
-    wb, bb = w.bfloat16(), b.bfloat16()
-    library_ms = time_ms(lambda: F.conv2d(xb, wb, bb, padding=1))
-    # x read, y written (bf16), U (bf16) and the f32 bias read
-    bound = bound_ms(2 * 2 * xb.numel() + 2 * u4.numel() + 4 * c, tap_flops(SHAPE, 4))
-    say("2 kernel wino_conv timing", shape=SHAPE, m=4, dtype="bf16", ms=ms,
-        plain_ms=plain_ms, f32_ms=ms_f32, bound_ms=bound,
-        library_ms_cudnn_conv2d=library_ms)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=library_ms)
+    # U as the module caches keep it: the kernels' order, built once
+    ku = {m: kernel_u(transform_weights(w, m).bfloat16()) for m in (2, 4)}
+    for m in (2, 4):
+        if not torch.equal(wino_conv(xb, ku[m], b, m, True),
+                           wino_conv(xb, transform_weights(w, m), b, m, True)):
+            raise CheckFailed(f"kernel-order U changed the conv's bits (m{m})")
+    u4 = ku[4]
+    modes = {"relu": lambda: wino_conv(xb, u4, b, 4, True),
+             "bias": lambda: wino_conv(xb, u4, b, 4),
+             "residual": lambda: wino_conv(xb, u4, b, 4, residual=resb),
+             "scaled": lambda: wino_conv(xb, u4, b, 4, residual=resb, res_scale=0.1),
+             "m2_relu": lambda: wino_conv(xb, ku[2], b, 2, True)}
+    dms = {k: device_ms(f) for k, f in modes.items()}
+    events_ms = time_ms(modes["relu"])
+    plain_ms = device_ms(lambda: wino_conv_plain(xb, u4.u, b, 4, True), iters=3)
+    ms_f32 = device_ms(lambda: wino_conv(x, u4.u.float(), b, 4, True))
+    # cuDNN with channels_last bf16 weights and a bf16 bias, in device time
+    wb = w.bfloat16().contiguous(**cl)
+    bb = b.bfloat16()
+    library_ms = device_ms(lambda: F.conv2d(xb, wb, bb, padding=1))
+    library_events_ms = time_ms(lambda: F.conv2d(xb, wb, bb, padding=1))
+    # x read, y written (bf16), U (bf16) and the f32 bias read; the scaled
+    # and residual modes also read res
+    nb = 2 * 2 * xb.numel() + 2 * u4.u.numel() + 4 * c
+    bound = bound_ms(nb, tap_flops(SHAPE, 4))
+    bounds = dict(relu=bound, bias=bound, residual=bound_ms(nb + 2 * xb.numel(),
+                                                            tap_flops(SHAPE, 4)),
+                  scaled=bound_ms(nb + 2 * xb.numel(), tap_flops(SHAPE, 4)),
+                  m2_relu=bound_ms(2 * 2 * xb.numel() + 2 * ku[2].u.numel() + 4 * c,
+                                   tap_flops(SHAPE, 2)))
+    say("2 kernel wino_conv timing", shape=SHAPE, m=4, dtype="bf16", device_ms=dms,
+        events_ms=events_ms, plain_ms=plain_ms, f32_ms=ms_f32, bound_ms=bounds,
+        library_ms_cudnn_conv2d_bias=library_ms, library_events_ms=library_events_ms)
+    return dict(max_abs_err=worst, ms=dms["relu"], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by(nb, tap_flops(SHAPE, 4)), library_ms=library_ms,
+                modes=dms, mode_bound_ms=bounds, kernels=["wino_conv_wgmma_kernel"])
 
 
 def phase_ca(dev, rng):
@@ -787,6 +817,7 @@ def phase_train(dev, seed):
     from sres_tpu_torch.models.layers import set_plain_twins
     from sres_tpu_torch.ops import winograd_conv as wc
     from sres_tpu_torch.ops.winograd import transform_weights
+    from sres_tpu_torch.ops.winograd_conv import conv_order
     from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
                                              make_step_config)
     nl, nb = MODEL_CFG["nlayers"], MODEL_CFG["nblocks"]
@@ -860,7 +891,8 @@ def phase_train(dev, seed):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     with torch.no_grad():
         u_now = transform_weights(body_conv.weight, 4).bfloat16()
-        fresh = torch.equal(body_conv._u(torch.bfloat16), u_now)
+        ku = body_conv._u(torch.bfloat16, kernel=True)    # the kernels' cache
+        fresh = torch.equal(ku.u, u_now) and torch.equal(ku.fwd, conv_order(u_now))
         moved = float((body_conv.weight - w_before).abs().max())
     say("9 train weights", body_conv_max_update=moved, u_cache_fresh=fresh,
         peak_mem_gb=peak_gb)
@@ -1817,12 +1849,12 @@ def phase_chain_kernels(dev, rng):
                 raise CheckFailed(f"res_scale 1.0 changed the epilogue's bits (m{m}, {dt})")
     # the scaled epilogue's cost (EDSR's conv2), bf16, m=4: x and res read,
     # y written, U and the bias read
-    u4b, xb, rb = transform_weights(w, 4).bfloat16(), x.bfloat16(), res.bfloat16()
-    ep = dict(ms=time_ms(lambda: wc.wino_conv(xb, u4b, b, 4, False, rb, 0.8)),
-              unscaled_ms=time_ms(lambda: wc.wino_conv(xb, u4b, b, 4, False, rb)),
-              plain_ms=time_ms(lambda: wc.wino_conv_plain(xb, u4b, b, 4, False, rb, 0.8),
-                               iters=3, warmup=1),
-              bound_ms=bound_ms(3 * 2 * xb.numel() + 2 * u4b.numel() + 4 * c,
+    u4b, xb, rb = wc.kernel_u(transform_weights(w, 4).bfloat16()), x.bfloat16(), res.bfloat16()
+    ep = dict(ms=device_ms(lambda: wc.wino_conv(xb, u4b, b, 4, False, rb, 0.8)),
+              unscaled_ms=device_ms(lambda: wc.wino_conv(xb, u4b, b, 4, False, rb)),
+              plain_ms=device_ms(lambda: wc.wino_conv_plain(xb, u4b, b, 4, False, rb, 0.8),
+                                 iters=3, warmup=1),
+              bound_ms=bound_ms(3 * 2 * xb.numel() + 2 * u4b.u.numel() + 4 * c,
                                 tap_flops(SHAPE, 4)))
     say("18 kernel wino_conv scaled residual timing", shape=SHAPE, m=4, dtype="bf16",
         res_scale=0.8, **ep)
@@ -1859,10 +1891,14 @@ def phase_chain_kernels(dev, rng):
     say("18 kernel wino_chain", **out)
     worst = out["bf16_vs_plain_abs"]
 
-    # timing, bf16: one chain launch, K launches of the conv kernel, the
-    # twin, and K channels_last F.conv2d + ReLU (the library yardstick; no
-    # one PyTorch call computes the chain)
-    wsb, bvb = ws.bfloat16(), bv.bfloat16()
+    # timing, bf16, in device time: one chain launch, K launches of the conv
+    # kernel (U in the kernels' order, as a model's caches keep it), the
+    # twin, and K F.conv2d + ReLU on channels_last weights (the library
+    # yardstick; no one PyTorch call computes the chain)
+    wsb = [ws[i].bfloat16().contiguous(memory_format=torch.channels_last)
+           for i in range(CHAIN_K)]
+    bvb = bv.bfloat16()
+    kus = wc.kernel_u(us[bf16])
 
     def convs():
         y = xb
@@ -1870,14 +1906,14 @@ def phase_chain_kernels(dev, rng):
             y = F.relu(F.conv2d(y, wsb[i], bvb[i], padding=1))
         return y
 
-    ms = time_ms(lambda: wc.wino_chain_fwd(xb, us[bf16], bv, 4), iters=5)
-    sep_ms = time_ms(lambda: separate(xb, us[bf16]), iters=5)
-    plain_ms = time_ms(lambda: wc.wino_chain_fwd_plain(xb, us[bf16], bv, 4), iters=2,
-                       warmup=1)
-    conv2d_ms = time_ms(convs, iters=5)
+    ms = device_ms(lambda: wc.wino_chain_fwd(xb, kus, bv, 4), iters=5)
+    sep_ms = device_ms(lambda: separate(xb, kus), iters=5)
+    plain_ms = device_ms(lambda: wc.wino_chain_fwd_plain(xb, us[bf16], bv, 4), iters=2,
+                         warmup=1)
+    conv2d_ms = device_ms(convs, iters=5)
     dev_ms = {name: profile_device(f"18 chain profile {name}", fn, top=4)
-              for name, fn in (("chain", lambda: wc.wino_chain_fwd(xb, us[bf16], bv, 4)),
-                               ("separate", lambda: separate(xb, us[bf16])))}
+              for name, fn in (("chain", lambda: wc.wino_chain_fwd(xb, kus, bv, 4)),
+                               ("separate", lambda: separate(xb, kus)))}
     # x read and y written once (bf16), K U operands (bf16) and biases (f32);
     # the K convs' tap products
     nbytes = 2 * 2 * xb.numel() + 2 * us[bf16].numel() + 4 * bv.numel()

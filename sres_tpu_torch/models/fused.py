@@ -8,7 +8,8 @@ stacked tree is converted on export, ``util/weights.py``). Its forward is
 one group of ``ops/fused_group.py`` kernels: the operands (conv weights in
 the kernels' layout and the activation dtype, their adjoints' flipped
 weights, f32 biases) are built once per weight load and cached like the
-Winograd trunk's.
+Winograd trunk's (outside inference mode, so that serving and then
+training in one process works).
 
 Under autograd the group runs through ``FusedGroupFn``, which keeps the
 forward's stash (each RCAB's input, ReLU output, conv2 output and gate:
@@ -29,7 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from sres_tpu_torch.models.layers import ResidualGroup
-from sres_tpu_torch.models.wino_blocks import _key, _records_grad, group_params
+from sres_tpu_torch.models.wino_blocks import _cached, _key, _records_grad, group_params
 from sres_tpu_torch.ops.fused_group import (FusedGroupFn, GroupOps, fused_group_fwd,
                                             fused_group_fwd_plain, group_ops)
 
@@ -44,12 +45,8 @@ class FusedResidualGroup(ResidualGroup):
         self._cache: Optional[Tuple] = None
 
     def _operands(self, dtype: torch.dtype) -> GroupOps:
-        key = _key(self, dtype)
-        if self._cache is None or self._cache[0] != key:
-            with torch.no_grad():
-                self._cache = (key, group_ops(list(self.body)[:-1], self.body[-1],
-                                              dtype))
-        return self._cache[1]
+        return _cached(self, _key(self, dtype),
+                       lambda: group_ops(list(self.body)[:-1], self.body[-1], dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ops = self._operands(x.dtype)

@@ -9,7 +9,11 @@ winograd-agnostic; only ``forward`` differs. The
 transform-domain weights U = G·w·Gᵀ are computed once per weight load (a
 cache keyed by every parameter's version counter and storage, and by the
 count of optimizer steps taken in the process) and kept in the activation
-dtype.
+dtype: for the kernels (a CUDA input, ``plain`` unset) as a ``WinoU``, U
+already in the orders the conv kernel and its adjoint read, so that no
+call reorders or copies it; for the plain twins in natural order. The
+caches are built outside ``torch.inference_mode`` even when a serving
+step fills them, so a training step after it can save them for backward.
 
 Under autograd (grad enabled and an input or a parameter that requires
 grad) the modules route through ``WinoConvFn``, ``WinoGroupTrailFn`` and
@@ -34,7 +38,7 @@ from torch.optim.optimizer import register_optimizer_step_post_hook
 from sres_tpu_torch.models.layers import Conv, ResBlock, ResidualGroup
 from sres_tpu_torch.ops.winograd import transform_weights
 from sres_tpu_torch.ops.winograd_conv import (WinoConvFn, WinoGroupTrailFn,
-                                              WinoResGroupTrailFn, wino_conv,
+                                              WinoResGroupTrailFn, kernel_u, wino_conv,
                                               wino_conv_plain, wino_group_fwd,
                                               wino_group_fwd_plain,
                                               wino_resgroup_fwd,
@@ -57,6 +61,20 @@ register_optimizer_step_post_hook(_count_step)
 def _key(module: nn.Module, dtype: torch.dtype) -> Tuple:
     return (dtype, _OPTIMIZER_STEPS[0]) + tuple(
         (p._version, p.data_ptr(), p.device) for p in module.parameters())
+
+
+def _kernel_order(module: nn.Module, x: torch.Tensor) -> bool:
+    """Whether a forward on x runs the kernels (and so takes ``WinoU``s)."""
+    return x.is_cuda and not module.plain
+
+
+def _cached(module: nn.Module, key: Tuple, build) -> object:
+    """module._cache[1], rebuilt by ``build()`` when the key changed: as
+    normal tensors (outside inference mode) and off the autograd graph."""
+    if module._cache is None or module._cache[0] != key:
+        with torch.inference_mode(False), torch.no_grad():
+            module._cache = (key, build())
+    return module._cache[1]
 
 
 def _records_grad(module: nn.Module, *xs: Optional[torch.Tensor]) -> bool:
@@ -93,19 +111,18 @@ class WinoConv(Conv):
         self.plain = False
         self._cache: Optional[Tuple] = None
 
-    def _u(self, dtype: torch.dtype) -> torch.Tensor:
-        key = _key(self, dtype)
-        if self._cache is None or self._cache[0] != key:
-            with torch.no_grad():
-                u = transform_weights(self.weight, self.m).to(dtype)
-            self._cache = (key, u)
-        return self._cache[1]
+    def _u(self, dtype: torch.dtype, kernel: bool = False):
+        """U in ``dtype``: natural, or with ``kernel`` a ``WinoU``."""
+        def build():
+            u = transform_weights(self.weight, self.m).to(dtype)
+            return kernel_u(u) if kernel else u
+        return _cached(self, _key(self, dtype) + (kernel,), build)
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """conv(x) + bias, plus ``residual`` when given (RCAN's body conv
         and global skip)."""
-        u = self._u(x.dtype)
+        u = self._u(x.dtype, _kernel_order(self, x))
         if _records_grad(self, x, residual):
             return WinoConvFn.apply(x, self.weight, self.bias, residual, u,
                                     self.m, self.plain)
@@ -123,14 +140,11 @@ class WinoResidualGroup(ResidualGroup):
         self.plain = False
         self._cache: Optional[Tuple] = None
 
-    def _operands(self, dtype: torch.dtype) -> Tuple:
-        key = _key(self, dtype)
-        if self._cache is None or self._cache[0] != key:
-            with torch.no_grad():
-                self._cache = (key, self._collect(dtype))
-        return self._cache[1]
+    def _operands(self, dtype: torch.dtype, kernel: bool = False) -> Tuple:
+        return _cached(self, _key(self, dtype) + (kernel,),
+                       lambda: self._collect(dtype, kernel))
 
-    def _collect(self, dtype: torch.dtype) -> Tuple:
+    def _collect(self, dtype: torch.dtype, kernel: bool) -> Tuple:
         blocks, trail = list(self.body)[:-1], self.body[-1]
         ws, bv, cw1, cb1, cw2, cb2 = [], [], [], [], [], []
         b = lambda conv: conv.bias.detach().float()
@@ -145,11 +159,12 @@ class WinoResidualGroup(ResidualGroup):
             cw2.append(d2.weight.detach()[:, :, 0, 0].float())
             cb2.append(b(d2))
         st = torch.stack
-        return (st(ws).to(dtype), st(bv), st(cw1), st(cb1), st(cw2), st(cb2),
-                transform_weights(trail.weight, self.m).to(dtype), b(trail))
+        order = kernel_u if kernel else (lambda u: u)
+        return (order(st(ws).to(dtype)), st(bv), st(cw1), st(cb1), st(cw2), st(cb2),
+                order(transform_weights(trail.weight, self.m).to(dtype)), b(trail))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ops = self._operands(x.dtype)
+        ops = self._operands(x.dtype, _kernel_order(self, x))
         if _records_grad(self, x):
             return WinoGroupTrailFn.apply(x, ops, self.m, self.plain,
                                           *group_params(self))
@@ -178,21 +193,20 @@ class WinoResTrunk(nn.Sequential):
         blocks = list(self)[:-1]
         return [c for blk in blocks for c in (blk.body[0], blk.body[2])] + [self[-1]]
 
-    def _operands(self, dtype: torch.dtype) -> Tuple:
-        key = _key(self, dtype)
-        if self._cache is None or self._cache[0] != key:
-            with torch.no_grad():
-                convs = self._convs()
-                nb, c = len(convs) // 2, convs[0].out_channels
-                u = transform_weights(torch.stack([cv.weight for cv in convs]),
-                                      self.m).to(dtype)
-                b = torch.stack([_bias(cv) for cv in convs])
-                ws = u[:-1].reshape(nb, 2, *u.shape[1:])
-                self._cache = (key, (ws, b[:-1].reshape(nb, 2, c), u[-1], b[-1]))
-        return self._cache[1]
+    def _operands(self, dtype: torch.dtype, kernel: bool = False) -> Tuple:
+        def build():
+            convs = self._convs()
+            nb, c = len(convs) // 2, convs[0].out_channels
+            u = transform_weights(torch.stack([cv.weight for cv in convs]),
+                                  self.m).to(dtype)
+            b = torch.stack([_bias(cv) for cv in convs])
+            order = kernel_u if kernel else (lambda t: t)
+            ws = order(u[:-1].reshape(nb, 2, *u.shape[1:]))
+            return ws, b[:-1].reshape(nb, 2, c), order(u[-1]), b[-1]
+        return _cached(self, _key(self, dtype) + (kernel,), build)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ops = self._operands(x.dtype)
+        ops = self._operands(x.dtype, _kernel_order(self, x))
         if _records_grad(self, x):
             params = [p for cv in self._convs() for p in (cv.weight, cv.bias)]
             return WinoResGroupTrailFn.apply(x, ops, self.m, self.res_scale,

@@ -155,14 +155,6 @@ __device__ __forceinline__ BTile btile(int tile, int h, int w) {
   return {im, (tr / ntx) * kPH, (tr % ntx) * kPW};
 }
 
-// A wgmma shared-memory matrix descriptor, no swizzle: start address, the
-// byte offset between core matrices adjacent in K (lbo) and in M or N (sbo).
-// A start offset of `off` bytes is desc + (off >> 4).
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
 // D(64 x 128, f32) += A(64 x 16) . B(16 x 128), both K-major in shared memory
 __device__ __forceinline__ void wgmma_m64n128_kk(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
@@ -200,27 +192,6 @@ __device__ __forceinline__ void wgmma_m64n64_tt(float (&d)[32], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from touching accumulators across wgmma_wait.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-// Generic-proxy writes to shared memory (cp.async, st.shared) become
-// visible to wgmma's async-proxy reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -228,15 +199,6 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void named_bar(int id, int nthreads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 // One arrival on `bar` once this thread's earlier cp.async copies have landed.
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {

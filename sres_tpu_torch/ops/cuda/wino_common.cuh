@@ -3,7 +3,8 @@
 // type conversions, the transform programs of sres_tpu/ops/winograd.py
 // (same operation order), the input transform of one (tile, channel), the
 // bf16 mma.sync wrapper, cp.async, ldmatrix and the mbarrier wait, the
-// fixed-order sum of f32 partials.
+// Hopper building blocks (wgmma descriptors and fences, named barriers,
+// mbarriers, bulk copies), the fixed-order sum of f32 partials.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,6 +84,22 @@ template <> __device__ __forceinline__ float at_coef<4>(int u, int i) {
                          {0, 1, 1, 4, 4, 0},
                          {0, 1, -1, 8, -8, 1}};
   return t[u][i];
+}
+
+// The inverse-transform program of sres_tpu_torch/ops/winograd.py:at_apply
+// (the twins' order): out[u] = sum_i AT[u][i] * f[i]  (n -> m).
+template <int M> __device__ __forceinline__ void at_apply(const float* f, float* o);
+template <> __device__ __forceinline__ void at_apply<2>(const float* f, float* o) {
+  o[0] = f[0] + f[1] + f[2];
+  o[1] = f[1] - f[2] - f[3];
+}
+template <> __device__ __forceinline__ void at_apply<4>(const float* f, float* o) {
+  const float s1 = f[1] + f[2], d1 = f[1] - f[2];
+  const float s2 = f[3] + f[4], d2 = f[3] - f[4];
+  o[0] = f[0] + s1 + s2;
+  o[1] = d1 + 2.0f * d2;
+  o[2] = s1 + 4.0f * s2;
+  o[3] = d1 + 8.0f * d2 + f[5];
 }
 
 // The adjoint programs of sres_tpu/ops/winograd.py:bt_t_apply (:183) and
@@ -180,11 +197,6 @@ __device__ __forceinline__ void input_transform(const T* __restrict__ x, int g,
   }
 }
 
-// bf16 tensor-core tiles: 16 tiles (one m16 fragment) per block; shared
-// rows of 64 channels padded to 72 (conflict-free fragment loads).
-constexpr int kMmaTiles = 16;
-constexpr int kMmaRow = kC + 8;
-
 // two bf16 values in one 32-bit word, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
@@ -262,6 +274,60 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
     if (done) return;
     if (i > (1ll << 24)) __trap();
   }
+}
+
+// ------------------------------------------------ Hopper building blocks
+// A wgmma shared-memory matrix descriptor, no swizzle: start address, the
+// byte offset between core matrices adjacent in K (lbo) and in M or N (sbo).
+// A start offset of `off` bytes is desc + (off >> 4).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from touching accumulators across wgmma_wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Generic-proxy writes to shared memory (cp.async, st.shared) become
+// visible to wgmma's async-proxy reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void named_bar(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Arm `bar` for `bytes` of asynchronous copies (this thread's arrival).
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// A bulk copy of `bytes` (a multiple of 16) from global to this CTA's shared
+// memory, completing on the mbarrier `bar` (the async proxy, as wgmma reads).
+__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Opt in to more than 48 KB of dynamic shared memory, once per kernel.

@@ -25,7 +25,10 @@ and every weight-gradient sum stay f32.
 Activations are NCHW (the kernels take them in channels_last memory format
 and return channels_last). Weights ``w`` are either the torch-layout
 (Cout, Cin, 3, 3) kernel or its precomputed transform (n², Cin, Cout) from
-``ops.winograd.transform_weights``. Channel-attention weights are the
+``ops.winograd.transform_weights``, which a CUDA call reorders into its
+kernel's order on every call, or a ``WinoU``: U already in the kernels'
+orders, as the module caches keep it, so that a conv call is one launch
+and the adjoint one wrapper call. Channel-attention weights are the
 squeezed 1×1 conv weights: caw1 (hidden, C), cab1 (hidden,), caw2 (C,
 hidden), cab2 (C,).
 
@@ -35,6 +38,7 @@ kernels.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,26 +65,73 @@ def reset_launches() -> None:
 
 
 # ------------------------------------------------------------------ helpers
-def _as_u(w: torch.Tensor, m: int, dtype: torch.dtype) -> torch.Tensor:
-    """Spatial (Cout, Cin, 3, 3) or transformed (n², Cin, Cout) → U in the
-    activation dtype (the TPU kernel's U operand, :593)."""
+class WinoU:
+    """A Winograd conv's U in the orders its kernels read, built once per
+    weight version by the module caches (``models/wino_blocks.py``): ``u``
+    natural (n², Cin, Cout) in the activation dtype (the plain twins'
+    operand), ``fwd`` the conv kernel's (``conv_order`` in bf16, ``u`` in
+    f32), ``bwd`` the adjoint's Uᵀ (``bwd_order`` in bf16, (n², Cout, Cin)
+    in f32). Leading dimensions (a stack of convs) index the three alike.
+    ``wino_conv`` and ``wino_conv_bwd`` take it in place of a spatial or
+    natural U, which they reorder on every call."""
+
+    __slots__ = ("u", "fwd", "bwd")
+
+    def __init__(self, u: torch.Tensor, fwd: torch.Tensor, bwd: torch.Tensor):
+        self.u, self.fwd, self.bwd = u, fwd, bwd
+
+    def __getitem__(self, idx) -> "WinoU":
+        return WinoU(self.u[idx], self.fwd[idx], self.bwd[idx])
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.u.shape
+
+
+def kernel_u(u: torch.Tensor) -> WinoU:
+    """Natural U (..., n², Cin, Cout) in the activation dtype → ``WinoU``."""
+    if u.dtype == torch.bfloat16:
+        return WinoU(u, conv_order(u), bwd_order(u))
+    return WinoU(u, u.contiguous(), u.transpose(-1, -2).contiguous())
+
+
+def conv_order(u: torch.Tensor) -> torch.Tensor:
+    """(..., n², Cin, Cout) U → the bf16 conv kernel's order: element
+    U[ti·n + tj][ci][co] at [tj][ti][ci // 8][co][ci % 8], a column of taps
+    after another (the order the kernel streams and folds them), each tap
+    Uᵀ in wgmma's K-major core-matrix layout (8 output channels × 8 input
+    channels a 128-byte core matrix). A permutation: any dtype."""
+    *lead, n2, ci, co = u.shape
+    n, b = math.isqrt(n2), len(lead)
+    v = u.reshape(*lead, n, n, ci // 8, 8, co)
+    return v.permute(*range(b), b + 1, b, b + 2, b + 4, b + 3).contiguous()
+
+
+def bwd_order(u: torch.Tensor) -> torch.Tensor:
+    """(..., n², Cin, Cout) U → the bf16 adjoint kernels' Uᵀ (the B operand
+    of dV = dM·Uᵀ) in mma fragment order: element Uᵀ[t][16·ks + 8·hh + 2·q +
+    e][8·nb + g] at [t][nb][ks][g][q][hh][e], so each lane (g, q) of an
+    mma.m16n8k16 reads its two B registers of one (tap, n8 block, k-step)
+    as one coalesced 8-byte load. A permutation: any dtype."""
+    ut = u.transpose(-1, -2)
+    *lead, n2, k, n = ut.shape
+    b = len(lead) + 1
+    v = ut.reshape(*lead, n2, 4, 2, 4, 2, 8, 8)
+    return v.permute(*range(b), b + 4, b, b + 5, b + 2, b + 1, b + 3).contiguous()
+
+
+def _as_u(w, m: int, dtype: torch.dtype) -> torch.Tensor:
+    """Spatial (Cout, Cin, 3, 3), transformed (n², Cin, Cout) or ``WinoU``
+    → natural U in the activation dtype (the TPU kernel's U operand, :593)."""
     n = m + 2
+    if isinstance(w, WinoU):
+        w = w.u
     if w.dim() == 4:
         w = transform_weights(w, m)
     if w.dim() != 3 or w.shape[0] != n * n:
         raise ValueError(f"weights must be (Cout, Cin, 3, 3) or ({n * n}, Cin, "
                          f"Cout) for m={m}, got {tuple(w.shape)}")
     return w.to(dtype)
-
-
-def mma_fragment_order(u: torch.Tensor) -> torch.Tensor:
-    """(n², 64, 64) U → the bf16 conv kernel's B-fragment order: element
-    U[t][16·ks + 8·hh + 2·q + e][8·nb + g] goes to [t][nb][ks][g][q][hh][e],
-    so each lane (g, q) of an mma.m16n8k16 reads its two B registers of one
-    (tap, n8 block, k-step) as one coalesced 8-byte load."""
-    n2 = u.shape[0]
-    return (u.reshape(n2, 4, 2, 4, 2, 8, 8).permute(0, 5, 1, 6, 3, 2, 4)
-            .contiguous())
 
 
 def _bias(b: Optional[torch.Tensor], c: int, like: torch.Tensor) -> torch.Tensor:
@@ -225,17 +276,23 @@ def _check_act(x: torch.Tensor, name: str, c: int) -> None:
         raise ValueError(f"{name}: kernel takes (T, {c}, H, W), got {tuple(x.shape)}")
 
 
-def _kernel_u(w: torch.Tensor, m: int, x: torch.Tensor, c: int,
-              transpose: bool = False) -> torch.Tensor:
-    """U (or Uᵀ, the B operand of dV = dM·Uᵀ) in x.dtype, in the kernels'
-    order: mma fragment order for bf16, plain (n², K, N) for f32."""
+def _operand(w, m: int, x: torch.Tensor, c: int, bwd: bool = False) -> torch.Tensor:
+    """The conv kernel's U (or, with ``bwd``, the adjoint's Uᵀ) for x: taken
+    from a ``WinoU`` as it is, or reordered from a spatial or natural U."""
+    n2 = (m + 2) ** 2
+    if isinstance(w, WinoU):
+        k = w.bwd if bwd else w.fwd
+        if (tuple(w.u.shape) != (n2, c, c) or k.dtype != x.dtype
+                or k.device != x.device or not k.is_contiguous()):
+            raise ValueError(f"WinoU must hold ({n2}, {c}, {c}) in {x.dtype} on "
+                             f"{x.device}, got {tuple(w.u.shape)} in {k.dtype} on "
+                             f"{k.device}")
+        return k
     u = _as_u(w, m, x.dtype)
-    if tuple(u.shape) != ((m + 2) ** 2, c, c) or u.device != x.device:
-        raise ValueError(f"U must be ({(m + 2) ** 2}, {c}, {c}) on {x.device}, "
+    if tuple(u.shape) != (n2, c, c) or u.device != x.device:
+        raise ValueError(f"U must be ({n2}, {c}, {c}) on {x.device}, "
                          f"got {tuple(u.shape)} on {u.device}")
-    if transpose:
-        u = u.transpose(1, 2)
-    return mma_fragment_order(u) if x.dtype == torch.bfloat16 else u.contiguous()
+    return getattr(kernel_u(u), "bwd" if bwd else "fwd")
 
 
 def _wino_conv_cuda(x, w, b, m, relu, residual, res_scale):
@@ -245,7 +302,7 @@ def _wino_conv_cuda(x, w, b, m, relu, residual, res_scale):
     _check_act(x, "x", c)
     t, _, h, wd = x.shape
     check_geometry(m, h, wd)
-    u = _kernel_u(w, m, x, c)
+    u = _operand(w, m, x, c)
     bias = _bias(b, c, x).contiguous()
     x = _channels_last(x)
     if residual is not None:
@@ -274,7 +331,7 @@ def _wino_chain_cuda(x, ws, bvec, m, relu):
     if k < 1 or tuple(bvec.shape) != (k, c) or bvec.device != x.device:
         raise ValueError(f"bvec must be ({k}, {c}) on {x.device} for {k} convs, "
                          f"got {tuple(bvec.shape)} on {bvec.device}")
-    u = torch.stack([_kernel_u(ws[i], m, x, c) for i in range(k)])
+    u = torch.stack([_operand(ws[i], m, x, c) for i in range(k)])
     bias = bvec.float().contiguous()
     x = _channels_last(x)
     y = torch.empty_like(x, memory_format=torch.channels_last)
@@ -338,7 +395,7 @@ def _wino_conv_bwd_cuda(g, x, w, m, y, gate, ds, dprev):
     if g.shape != x.shape or g.device != x.device or g.dtype not in (xdt, f32):
         raise ValueError(f"g must match x in shape and device, in {xdt} or "
                          f"float32; got {tuple(g.shape)} {g.dtype} on {g.device}")
-    ut = _kernel_u(w, m, x, c, transpose=True)
+    ut = _operand(w, m, x, c, bwd=True)
     g, x = _channels_last(g), _channels_last(x)
     if y is not None:
         if y.shape != x.shape or y.dtype != xdt or y.device != x.device:
@@ -429,7 +486,8 @@ def wino_chain_fwd(x: torch.Tensor, ws: torch.Tensor, bvec: torch.Tensor,
                    m: int, relu: bool = True) -> torch.Tensor:
     """K chained 3×3 SAME Winograd convs (+ bias, + ReLU) in one launch, the
     counterpart of the JAX probe ``wino_chain_fwd`` (forward only; no model
-    calls it). ws: (K, Cout, Cin, 3, 3) or (K, n², Cin, Cout); bvec (K, C).
+    calls it). ws: (K, Cout, Cin, 3, 3), (K, n², Cin, Cout) or a stacked
+    ``WinoU``; bvec (K, C).
     CUDA tensor → one cooperative launch of the chain kernel (which equals
     K ``wino_conv`` launches bit for bit); CPU tensor → twin."""
     if x.device.type == "cpu":
@@ -656,24 +714,25 @@ class WinoConvFn(torch.autograd.Function):
     """y = conv(x, weight) + bias [+ residual] through ``wino_conv``, with
     ``wino_conv_bwd`` as its backward (the ``wino_conv_quad`` VJP,
     winograd_conv.py:677-696). ``u`` is the caller's transform of
-    ``weight`` in x.dtype; the weight gradient is untransform_weight_grad(dU),
-    in the weight's dtype."""
+    ``weight`` in x.dtype (a tensor or a ``WinoU``, kept on ``ctx``: a cache,
+    never an inference tensor); the weight gradient is
+    untransform_weight_grad(dU), in the weight's dtype."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, residual, u, m, plain=False):
         y = (wino_conv_plain if plain else wino_conv)(x, u, bias, m,
                                                       residual=residual)
-        ctx.save_for_backward(x, u)
-        ctx.m, ctx.plain = m, plain
+        ctx.save_for_backward(x)
+        ctx.u, ctx.m, ctx.plain = u, m, plain
         ctx.dtypes = (weight.dtype, None if bias is None else bias.dtype,
                       None if residual is None else residual.dtype)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, u = ctx.saved_tensors
+        x, = ctx.saved_tensors
         bwd = wino_conv_bwd_plain if ctx.plain else wino_conv_bwd
-        dx, du, db = bwd(dy.to(x.dtype), x, u, ctx.m)
+        dx, du, db = bwd(dy.to(x.dtype), x, ctx.u, ctx.m)
         wdt, bdt, rdt = ctx.dtypes
         return (dx, untransform_weight_grad(du, ctx.m).to(wdt),
                 None if bdt is None else db.to(bdt),

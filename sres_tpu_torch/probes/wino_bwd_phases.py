@@ -153,7 +153,7 @@ def main() -> int:
     xb = f32(*shape).contiguous(memory_format=cl).bfloat16()
     gb = f32(*shape).contiguous(memory_format=cl).bfloat16()
     u = transform_weights(f32(64, 64, 3, 3, sc=0.04), 4).bfloat16()
-    ut = twc._kernel_u(u, 4, xb, 64, transpose=True)
+    ut = twc._operand(u, 4, xb, 64, bwd=True)
     yb = twc.wino_conv(xb, u, None, 4, relu=True)
     res = {}
     for name in variants:

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from sres_tpu_torch.ops import winograd_conv as twc
+from sres_tpu_torch.ops.winograd import transform_weights
 
 
 @pytest.fixture()
@@ -59,6 +60,78 @@ def test_wino_conv_matches_twin(dev, m, relu, res):
            lambda x_, r_: twc.wino_conv_plain(x_, w, b, m, relu, r_ if res else None),
            (x, r), (x.bfloat16(), r.bfloat16()))
     assert twc.LAUNCHES["wino_conv"] == launches + 2
+
+
+_MODES = {"bias": (False, None), "relu": (True, None), "res1": (False, 1.0),
+          "res01": (False, 0.1), "relu_res07": (True, 0.7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(5, 64, 16, 24), (1, 64, 8, 8), (72, 64, 48, 48)])
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("mode", list(_MODES))
+def test_wino_conv_every_mode_matches_twin(dev, shape, m, mode):
+    """The bf16 conv (clusters of two blocks, each with half of U resident,
+    a partial unit at the end of each cluster's range) and the f32 kernel
+    against the twin in every epilogue mode: bias only, ReLU, the residual
+    at res_scale 1.0 and 0.1, ReLU with the residual; at the card tests'
+    shape, at (1, 64, 8, 8) (4 tiles at m=4) and at the flagship's."""
+    relu, res_scale = _MODES[mode]
+    rng = np.random.default_rng(80 + m)
+    x, r = _t(rng, shape, dev), _t(rng, shape, dev)
+    w, b = _t(rng, (64, 64, 3, 3), dev, 0.04), _t(rng, (64,), dev, 0.04)
+    res = res_scale is not None
+    sc = res_scale if res else 1.0
+    _check(lambda x_, r_: twc.wino_conv(x_, w, b, m, relu, r_ if res else None, sc),
+           lambda x_, r_: twc.wino_conv_plain(x_, w, b, m, relu, r_ if res else None, sc),
+           (x, r), (x.bfloat16(), r.bfloat16()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_wino_conv_is_deterministic_and_order_blind(dev, m):
+    """Two calls give the same bits; U spatial, natural or already in the
+    kernels' orders (a ``WinoU``, as the module caches keep it) gives the
+    same bits, forward and adjoint."""
+    rng = np.random.default_rng(90 + m)
+    x, g = _t(rng, (72, 64, 48, 48), dev), _t(rng, (72, 64, 48, 48), dev)
+    w, b = _t(rng, (64, 64, 3, 3), dev, 0.04), _t(rng, (64,), dev, 0.04)
+    for dt in (torch.float32, torch.bfloat16):
+        xx, gg = x.to(dt), g.to(dt)
+        u = transform_weights(w, m).to(dt)
+        ku = twc.kernel_u(u)
+        ys = [twc.wino_conv(xx, op, b, m, True) for op in (w, u, ku, ku)]
+        dxs = [twc.wino_conv_bwd(gg, xx, op, m) for op in (w, u, ku)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(y, ys[0]) for y in ys[1:])
+        for dx in dxs[1:]:
+            assert all(torch.equal(a, c) for a, c in zip(dx, dxs[0]))
+
+
+@pytest.mark.cuda
+def test_cached_wino_conv_is_one_launch(dev):
+    """A cached module's conv call is one kernel launch, with no reorder or
+    copy of U (the profiler's device kernels of one forward); the adjoint
+    takes the cached Uᵀ as it is."""
+    from sres_tpu_torch.models.wino_blocks import WinoConv
+    conv = WinoConv(64, 64, 4).to(dev)
+    x = torch.randn(8, 64, 16, 16, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        conv(x)                                       # builds the cache
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    launches = twc.LAUNCHES["wino_conv"]
+    with torch.profiler.profile(activities=acts) as prof, torch.no_grad():
+        conv(x)
+        torch.cuda.synchronize()
+    assert twc.LAUNCHES["wino_conv"] == launches + 1
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "wino_conv_wgmma_kernel" in kernels[0], kernels
+    ku = conv._u(torch.bfloat16, kernel=True)
+    assert isinstance(ku, twc.WinoU)
+    assert twc._operand(ku, 4, x, 64) is ku.fwd
+    assert twc._operand(ku, 4, x, 64, bwd=True) is ku.bwd
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ from sres_tpu.util.torch_import import import_variables
 from sres_tpu_torch.models import build_model
 from sres_tpu_torch.models.wino_blocks import WinoConv
 from sres_tpu_torch.ops.winograd import transform_weights
+from sres_tpu_torch.ops.winograd_conv import bwd_order, conv_order
 from sres_tpu_torch.trainer import step as tstep
 from sres_tpu_torch.util.weights import state_dict_from_jax
 
@@ -201,3 +202,87 @@ def test_flagship_winograd_trajectory_full_size():
         maxabs = max(maxabs, float(np.abs(a - b).max()))
     assert nviol <= 1e-4 * ntot, f"{nviol}/{ntot} violations"
     assert maxabs < STEPS * task["lr"] * 1.5, maxabs
+
+
+def test_optimizer_step_refreshes_the_kernel_order_u():
+    """The kernels' cached U (a ``WinoU``: U in the conv kernel's order and
+    Uᵀ in the adjoint's) is rebuilt after a fused Adam step, like the
+    natural U above, and holds the new weights' transform."""
+    conv = WinoConv(64, 64, 4)
+    ku0 = conv._u(torch.bfloat16, kernel=True)
+    assert conv._u(torch.bfloat16, kernel=True) is ku0
+    opt = torch.optim.Adam(conv.parameters(), lr=1e-2, fused=True)
+    conv(torch.ones(1, 64, 4, 4)).sum().backward()
+    opt.step()
+    ku1 = conv._u(torch.bfloat16, kernel=True)
+    u = transform_weights(conv.weight, 4).to(torch.bfloat16)
+    assert ku1 is not ku0 and not torch.equal(ku1.fwd, ku0.fwd)
+    assert torch.equal(ku1.u, u)
+    assert torch.equal(ku1.fwd, conv_order(u)) and torch.equal(ku1.bwd, bwd_order(u))
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("order", ["conv", "bwd"])
+def test_kernel_order_u_is_a_permutation_and_back(m, order):
+    """The conv kernel's and the adjoint's orders of U (bf16) move every
+    element once: applied to the flat indices they give a permutation,
+    which carries a U there and, inverted, back. Spot checks of the layouts
+    the kernels read: U[ti·n + tj][ci][co] at [tj][ti][ci // 8][co][ci % 8],
+    Uᵀ[t][16·ks + 8·hh + 2·q + e][8·nb + g] at [t][nb][ks][g][q][hh][e]."""
+    n, fn = m + 2, {"conv": conv_order, "bwd": bwd_order}[order]
+    idx = fn(torch.arange(n * n * 64 * 64).reshape(n * n, 64, 64)).flatten()
+    assert torch.equal(idx.sort().values, torch.arange(idx.numel()))
+    u = torch.from_numpy(np.random.default_rng(m).normal(
+        size=(n * n, 64, 64)).astype(np.float32)).to(torch.bfloat16)
+    k = fn(u)
+    assert torch.equal(k.flatten(), u.flatten()[idx])
+    back = torch.empty_like(u).flatten()
+    back[idx] = k.flatten()
+    assert torch.equal(back.reshape(u.shape), u)
+    ti, tj, ci, co = n - 1, 1, 37, 22
+    if order == "conv":
+        assert k[tj, ti, ci // 8, co, ci % 8] == u[ti * n + tj, ci, co]
+    else:   # Uᵀ[t][k][nn] = U[t][nn][k], k = 16·ks + 8·hh + 2·q + e, nn = 8·nb + g
+        ks, hh, q, e, nb, g = 2, 1, 3, 0, 5, 6
+        kk, nn = 16 * ks + 8 * hh + 2 * q + e, 8 * nb + g
+        assert k[ti * n + tj, nb, ks, g, q, hh, e] == u[ti * n + tj, nn, kk]
+    # and a stack of convs orders conv by conv (the group caches' operands)
+    assert torch.equal(fn(torch.stack([u, u + 1]))[1], fn(u + 1))
+
+
+SERVE_TRAIN = {"rcan-direct": ("rcan", {}), "rcan-winograd-2": ("rcan", {"winograd": 2}),
+               "rcan-winograd-4": ("rcan", {"winograd": 4}),
+               "rcan-fused": ("rcan", {"fused": True}),
+               "edsr-winograd-4": ("edsr", {"winograd": 4})}
+
+
+@pytest.mark.parametrize("trunk", list(SERVE_TRAIN))
+def test_serve_then_train_matches_a_model_that_did_not_serve(trunk):
+    """Serving (``build_eval_step``, under ``torch.inference_mode``) fills
+    the operand caches; the training steps after it must neither fail on
+    inference tensors nor differ: serve, train, serve, train on one model,
+    train, train on a twin of the same seed that never served, the same
+    losses and gradients bit for bit (the JAX trainer validates after every
+    epoch, trainer.py:435)."""
+    name, opts = SERVE_TRAIN[trunk]
+    cfg = dict(CFGS[name], **opts)
+    hr, weight = (torch.from_numpy(a) for a in _batches())
+    sc = tstep.make_step_config(TASK, cfg)
+    runs = []
+    for serve in (True, False):
+        model = build_model(cfg, 1, 1, "f32", seed=SEED, device="cpu")
+        step = tstep.build_train_step(model, tstep.build_optimizer(model, TASK), sc)
+        serve_step = tstep.build_eval_step(model, sc)
+        out = []
+        for i in range(2):
+            if serve:
+                metrics, outs = serve_step(hr[i], weight)
+                assert all(torch.isfinite(o).all() for o in outs)
+            met = step(hr[i], weight)
+            out.append((met, {k: p.grad.clone() for k, p in model.named_parameters()}))
+        runs.append(out)
+    for (met_a, g_a), (met_b, g_b) in zip(*runs):
+        assert {k: float(v) for k, v in met_a.items()} == {k: float(v) for k, v in met_b.items()}
+        assert g_a.keys() == g_b.keys()
+        for k in g_a:
+            assert torch.equal(g_a[k], g_b[k]), k
