@@ -15,7 +15,11 @@ Phases, one line each (every line carries the card's name and power limit):
    modes the trunks call (ReLU, bias only, the residual at res_scale 1
    and 0.1; ReLU at m=2), against ``F.conv2d`` with bias on channels_last
    bf16 weights, the back-to-back events beside;
-3. kernel (b), channel attention + block skip, against its plain twin;
+3. kernel (b), channel attention + block skip, against its plain twin at
+   (72, 64, 48, 48) (``ca_cluster_kernel``: a cluster of 4 blocks a
+   sample in bf16, 8 in f32, r read once) and at (2, 64, 192, 192)
+   (``ca_two_pass_kernel``, one cooperative launch), timed in device time
+   (``device_ms``) against its bound, the back-to-back events beside;
 4. one full residual group (20 RCABs + trailing conv, m=4, batch 72);
 5. the serving slice: RCAN-10-20-64 ×4 with ``winograd: 4``, bf16 compute,
    served through build_model → build_eval_step for three requests of 72
@@ -66,9 +70,11 @@ Phases, one line each (every line carries the card's name and power limit):
    and CA partials, with a residual, and as the dgrads of conv2 and conv1:
    CA prologue and mask, carried cotangent and group skip), the weight
    gradient (``fg_wgrad_wgmma_kernel``: plain, CA prologue, db from
-   partials), gate + skip and the CA backward; each mode timed in device
-   time (``device_ms``; back-to-back events beside) against its bound and
-   against ``F.conv2d`` and cuDNN's dgrad and wgrad, channels_last weights;
+   partials), gate + skip (``fg_ca_stream_kernel``, serving and with the
+   stash, each against its own bound) and the CA backward; each mode timed
+   in device time (``device_ms``; back-to-back events beside) against its
+   bound and against ``F.conv2d`` and cuDNN's dgrad and wgrad,
+   channels_last weights;
 15. one fused group (20 RCABs + trailing conv, b72): forward, stash and
    gradients, kernels against twins (the rule of phase 8 for flipped
    gates; the backward kernels alone on one shared stash), timed against
@@ -144,7 +150,10 @@ direction: ``window_attention`` and ``window_attention_bwd`` at T = 64
 with phase 13's launches and phase 10's and 11's times,
 ``window_attention_t256`` and ``window_attention_bwd_t256`` with phase
 24's and phase 22's, each naming its CUDA kernels; ``wino_conv_bwd`` naming its three
-kernels, with each mode's times in ``modes``; ``serve_launches`` over the three
+kernels, with each mode's times in ``modes``; ``ca_skip`` naming its two
+kernels, the cluster size at the flagship's shape and the two-pass
+kernel's time at (2, 64, 192, 192); ``fgroup_ca`` naming its kernel, with
+the serving and stash modes' times and bounds; ``serve_launches`` over the three
 requests of phases 5, 12, 16, 20 and 23; the chain's over the one probe
 launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
@@ -442,28 +451,45 @@ def phase_conv(dev, rng):
 
 def phase_ca(dev, rng):
     import torch
+    from sres_tpu_torch.ops import cuda
     from sres_tpu_torch.ops.winograd_conv import ca_skip, ca_skip_plain
     c, hid = SHAPE[1], SHAPE[1] // MODEL_CFG["cbottleneck"]
     cl = dict(memory_format=torch.channels_last)
-    q = torch.from_numpy(rng.normal(size=SHAPE).astype(np.float32)).to(dev).contiguous(**cl)
-    r = (torch.from_numpy(rng.normal(size=SHAPE).astype(np.float32)).to(dev)
-         + 0.3).contiguous(**cl)
+    lib = cuda.load()
     ws = [torch.from_numpy(rng.uniform(-a, a, s).astype(np.float32)).to(dev)
           for a, s in ((1 / 8, (hid, c)), (1 / 8, (hid,)),
                        (1 / math.sqrt(hid), (c, hid)), (1 / math.sqrt(hid), (c,)))]
-    qb, rb = q.bfloat16(), r.bfloat16()
-    out = check_pair("ca_skip", ca_skip(q, r, *ws), ca_skip_plain(q, r, *ws),
-                     ca_skip(qb, rb, *ws), ca_skip_plain(qb, rb, *ws))
-    torch.cuda.synchronize()
-    say("3 kernel ca_skip", **out)
-    ms = time_ms(lambda: ca_skip(qb, rb, *ws))
-    plain_ms = time_ms(lambda: ca_skip_plain(qb, rb, *ws))
+    # the flagship's shape (the cluster kernel) and samples too large for a
+    # cluster (the two-pass kernel)
+    worst, routes = 0.0, {}
+    for shape in (SHAPE, (2, c, 192, 192)):
+        q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).contiguous(**cl)
+        r = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+             + 0.3).contiguous(**cl)
+        qb, rb = q.bfloat16(), r.bfloat16()
+        out = check_pair(f"ca_skip {shape}", ca_skip(q, r, *ws), ca_skip_plain(q, r, *ws),
+                         ca_skip(qb, rb, *ws), ca_skip_plain(qb, rb, *ws))
+        torch.cuda.synchronize()
+        routes[str(shape)] = {dt: lib.sres_ca_skip_cluster(shape[0], shape[2] * shape[3], bf, 0)
+                              for dt, bf in (("bf16", 1), ("f32", 0))}
+        say("3 kernel ca_skip", cluster=routes[str(shape)], **out)
+        if shape == SHAPE:
+            worst = out["bf16_vs_plain_abs"]
+            ms = device_ms(lambda: ca_skip(qb, rb, *ws))
+            events = time_ms(lambda: ca_skip(qb, rb, *ws))
+            plain_ms = device_ms(lambda: ca_skip_plain(qb, rb, *ws))
+        else:
+            two_pass_ms = device_ms(lambda: ca_skip(qb, rb, *ws))
+            two_pass_bound = bound_ms(3 * 2 * qb.numel(), 0.0)
     # q and r read, out written (bf16); the MLP's few thousand MACs
-    bound = bound_ms(3 * 2 * qb.numel(), 0.0)
-    say("3 kernel ca_skip timing", shape=SHAPE, dtype="bf16", ms=ms, plain_ms=plain_ms,
-        bound_ms=bound)
-    return dict(max_abs_err=out["bf16_vs_plain_abs"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by="bytes", library_ms=None)
+    bound = bound_ms(3 * 2 * SHAPE[0] * SHAPE[1] * SHAPE[2] * SHAPE[3], 0.0)
+    say("3 kernel ca_skip timing", shape=SHAPE, dtype="bf16", device_ms=ms, events_ms=events,
+        plain_ms=plain_ms, bound_ms=bound, two_pass_shape=(2, c, 192, 192),
+        two_pass_device_ms=two_pass_ms, two_pass_bound_ms=two_pass_bound)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None, kernels=["ca_cluster_kernel", "ca_two_pass_kernel"],
+                cluster=routes[str(SHAPE)]["bf16"], two_pass_ms=two_pass_ms,
+                two_pass_bound_ms=two_pass_bound)
 
 
 def phase_group(dev, seed):
@@ -1473,13 +1499,17 @@ def phase_fg_kernels(dev, rng):
 
     ms = device_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca))
     ms_stash = device_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca, stash_c=True))
+    events = time_ms(lambda: fg.fgroup_ca(xb, cf, part, *ca))
     plain_ms = device_ms(lambda: fg.fgroup_ca_plain(xb, cf, part, *ca))
     nbytes = act + 4 * n + act                        # x (bf16), c (f32) read; x' written
+    bounds = dict(serve=bound_ms(nbytes, 0.0), stash=bound_ms(nbytes + act, 0.0))   # + T(c)
     res["fgroup_ca"] = dict(max_abs_err=worst["fgroup_ca"], ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms(nbytes, 0.0), bound_by="bytes",
-                            library_ms=None)
-    say("14 kernel fgroup_ca timing", shape=SHAPE, dtype="bf16", ms=ms,
-        stash_ms=ms_stash, plain_ms=plain_ms, bound_ms=res["fgroup_ca"]["bound_ms"])
+                            bound_ms=bounds["serve"], bound_by="bytes", library_ms=None,
+                            modes=dict(serve=ms, stash=ms_stash), mode_bound_ms=bounds,
+                            kernels=["fg_ca_stream_kernel"])
+    say("14 kernel fgroup_ca timing", shape=SHAPE, dtype="bf16", device_ms=ms,
+        stash_device_ms=ms_stash, events_ms=events, plain_ms=plain_ms,
+        bound_ms=bounds["serve"], stash_bound_ms=bounds["stash"])
 
     cb = cf.bfloat16()
     ms = device_ms(lambda: fg.fgroup_ca_bwd(gb, cb, gate, *ca))

@@ -58,8 +58,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_wino_chain.restype = i
     lib.sres_wino_chain.argtypes = [vp] * 5 + [i] * 8 + [vp]
     lib.sres_ca_skip.restype = i
-    lib.sres_ca_skip.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                 i, i, i, i, i, i, i, vp]
+    lib.sres_ca_skip.argtypes = [vp] * 8 + [i] * 5 + [vp]
+    for name in ("sres_ca_skip_cluster", "sres_ca_skip_scratch"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [i] * 4
     lib.sres_wino_bwd_scratch.restype = i
     lib.sres_wino_bwd_scratch.argtypes = [i] * 5
     lib.sres_wino_conv_bwd.restype = i
@@ -80,7 +82,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_fg_conv.restype = i
     lib.sres_fg_conv.argtypes = [vp] * 10 + [i] * 7 + [vp]
     lib.sres_fg_ca.restype = i
-    lib.sres_fg_ca.argtypes = [vp] * 3 + [i] + [vp] * 7 + [i] * 6 + [vp]
+    lib.sres_fg_ca.argtypes = [vp] * 3 + [i] + [vp] * 7 + [i] * 5 + [vp]
     lib.sres_fg_wgrad_scratch.restype = i
     lib.sres_fg_wgrad_scratch.argtypes = [i] * 5
     lib.sres_fg_wgrad.restype = i

@@ -143,16 +143,6 @@ __device__ __forceinline__ float2 ldg2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
 
-// The two halves of a cluster barrier (cluster.sync() is both at once):
-// arrive releases this thread's earlier accesses, wait returns once every
-// thread of the cluster has arrived. A thread alternates them.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
 // ------------------------------------------------------- the warp product
 // acc[j] += A[m0 : m0 + 16, k0 : k1] . B[k0 : k1, n0 + 8 j : n0 + 8 j + 8]
 // for j < nt (nt <= NT), in the m16n8 accumulator layout (lane l: rows

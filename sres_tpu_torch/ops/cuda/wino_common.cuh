@@ -4,7 +4,8 @@
 // (same operation order), the input transform of one (tile, channel), the
 // bf16 mma.sync wrapper, cp.async, ldmatrix and the mbarrier wait, the
 // Hopper building blocks (wgmma descriptors and fences, named barriers,
-// mbarriers, bulk copies), the fixed-order sum of f32 partials.
+// mbarriers, bulk copies, the halves of a cluster barrier), the
+// fixed-order sum of f32 partials.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -328,6 +329,16 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// The two halves of a cluster barrier (cluster.sync() is both at once):
+// arrive releases this thread's earlier accesses, wait returns once every
+// thread of the cluster has arrived. A thread alternates them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // Opt in to more than 48 KB of dynamic shared memory, once per kernel.

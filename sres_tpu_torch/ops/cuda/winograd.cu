@@ -11,7 +11,8 @@
 // The TPU group kernel keeps one sample block resident in VMEM across a whole
 // residual group. One 48x48x64 bf16 tile is 288 KiB, more than an SM's shared
 // memory, and channel attention needs the mean over the whole tile, so here
-// the group is a sequence of launches: conv, conv, pool, gate+skip per RCAB.
+// the group is a sequence of launches: conv, conv, channel attention per
+// RCAB (kernel (b): one launch that reads r once, see its comment).
 //
 // Layout: activations are NHWC (a torch NCHW tensor in channels_last memory
 // format), C = 64 in and out. U = (n*n, Cin, Cout) transform-domain weights.
@@ -40,6 +41,7 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "ca_common.cuh"
 #include "wino_common.cuh"
 
 namespace {
@@ -719,67 +721,164 @@ wino_chain_f32_kernel(const float* x, const float* __restrict__ u,
 }
 
 // ------------------------------------------- kernel (b): channel attention
-// (b1) per-sample, per-channel partial sums of r over S spatial chunks
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ca_pool_kernel(const T* __restrict__ r, float* __restrict__ partial, int hw) {
-  const int s = blockIdx.x, nsplit = gridDim.x, im = blockIdx.y;
-  const int c = threadIdx.x % kC, lane = threadIdx.x / kC;
-  constexpr int kLanes = kThreads / kC;
-  const int p0 = (int)((long long)hw * s / nsplit);
-  const int p1 = (int)((long long)hw * (s + 1) / nsplit);
-  const T* rb = r + (size_t)im * hw * kC + c;
-  float acc = 0.0f;
-  for (int p = p0 + lane; p < p1; p += kLanes) acc += to_f(rb[(size_t)p * kC]);
-  __shared__ float red[kThreads];
-  red[threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.x < kC) {
-    float t = 0.0f;
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) t += red[l * kC + c];
-    partial[((size_t)im * nsplit + s) * kC + c] = t;
-  }
-}
+// out = q + r * gate(r) in one launch. What bounds it: q and r read once,
+// out written once (63.7 MB at 72x64x48x48 bf16: 19.0 us at 3.35 TB/s);
+// the MLP is a few thousand MACs a sample. Two kernels, chosen by shape
+// (ca_route):
+// (b1) ca_cluster_kernel, when a sample's r fits the shared memory of a
+//   cluster of 1, 2, 4 or 8 blocks at kCaSliceMax bytes a block (three
+//   blocks an SM; 48x48 bf16: 4 blocks of 576 pixels): the cluster holds
+//   its sample's r, each block a slice of pixels loaded by kCaStages bulk
+//   copies on mbarriers and summed per channel as each lands; the blocks
+//   add the cluster's sums through distributed shared memory in rank
+//   order (each block gets the same bits), each runs the MLP over its
+//   warps, then streams q in with 16-byte loads (a thread's first
+//   kCaPrefetch vectors in flight since the start, then the next
+//   kCaPrefetch while it computes the current ones) and out with 16-byte
+//   stores, r from shared memory. r is read from device memory once.
+// (b2) ca_two_pass_kernel, for larger samples (above 4640 pixels in bf16,
+//   as 96x96; above 2320 in f32): one
+//   cooperative launch that sums r per chunk of kCaChunkPix pixels into
+//   f32 partials, computes each sample's gate once (one block a sample,
+//   its partials in order) and streams q and r again (CaStream), 16-byte
+//   accesses throughout: r is read twice.
+constexpr int kCaStages = 4;         // (b1): bulk copies a slice of r comes in
+constexpr int kCaSliceMax = 74240;   // (b1): r's bytes a block holds, three blocks an SM
+constexpr int kCaPrefetch = 4;       // q vectors a thread has in flight, twice over
+constexpr int kCaChunkPix = 256;     // (b2): pixels a partial sum covers
+constexpr int kCaBatch = 3;          // (b2): vectors a thread streams at a time
 
-// (b2) gate = sigmoid(W2 relu(W1 mean + b1) + b2); out = q + r * gate.
-// Every block recomputes its sample's gate from the partial sums (a few
-// thousand MACs), then streams its share of the sample's elements.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ca_gate_skip_kernel(const T* __restrict__ q, const T* __restrict__ r,
-                    const float* __restrict__ partial, int npart,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    T* __restrict__ out, int hw, int hidden, float inv_npix) {
-  const int im = blockIdx.y, chunk = blockIdx.x, nchunk = gridDim.x;
-  const int tid = threadIdx.x;
-  __shared__ float mean[kC], hid[kMaxHidden], gate[kC];
+__global__ void __launch_bounds__(kThreads, 3)
+ca_cluster_kernel(const T* __restrict__ q, const T* __restrict__ r,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ w2, const float* __restrict__ b2,
+                  T* __restrict__ out, int hw, int hidden, float inv_npix) {
+  using V = CaVec<T>;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int nc = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int im = blockIdx.x / nc, tid = threadIdx.x;
+  const int p0 = (int)((long long)hw * rank / nc);
+  const int npix = (int)((long long)hw * (rank + 1) / nc) - p0, nvec = npix * V::kPerPix;
+  const size_t base = ((size_t)im * hw + p0) * kC;          // the slice's first element
+  extern __shared__ __align__(128) unsigned char rs[];       // r's slice, as in memory
+  __shared__ __align__(8) uint64_t bars[kCaStages];
+  __shared__ float csum[kC];                                 // read by the cluster's blocks
+  __shared__ float red[kCaWarps][kC];                        // the block sum; mean, hid, gate
+  if (tid == 0) {
+    for (int s = 0; s < kCaStages; ++s) mbar_init(smem_u32(&bars[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < kCaStages; ++s) {
+      const int a = npix * s / kCaStages, e = npix * (s + 1) / kCaStages;
+      const uint32_t bytes = (uint32_t)(e - a) * kC * sizeof(T);
+      mbar_expect_tx(smem_u32(&bars[s]), bytes);
+      if (bytes)
+        bulk_g2s(smem_u32(rs + (size_t)a * kC * sizeof(T)), r + base + (size_t)a * kC, bytes,
+                 smem_u32(&bars[s]));
+    }
+  }
+  uint4 qa[kCaPrefetch];
+#pragma unroll
+  for (int j = 0; j < kCaPrefetch; ++j) {
+    const int v = tid + j * kThreads;
+    if (v < nvec) qa[j] = ldg16(q + base + (size_t)v * V::kVec);
+  }
+  __syncthreads();                                           // the mbarriers are set
+  float acc[V::kVec] = {};
+  for (int s = 0; s < kCaStages; ++s) {
+    const int a = npix * s / kCaStages * V::kPerPix, e = npix * (s + 1) / kCaStages * V::kPerPix;
+    mbar_wait(smem_u32(&bars[s]), 0);
+    for (int v = a + tid; v < e; v += kThreads) {
+      float f[V::kVec];
+      unpack16<T>(*reinterpret_cast<const uint4*>(rs + (size_t)v * 16), f);
+#pragma unroll
+      for (int k = 0; k < V::kVec; ++k) acc[k] += f[k];
+    }
+  }
+  ca_block_sum<T>(acc, red, csum);
+  cluster_arrive();                                          // this block's sums in place
+  CaWeights cw;
+  ca_load_weights(cw, w1, b1, w2, b2, hidden);
+  cluster_wait();                                            // every block's
+  float *mean = red[0], *hid = red[1], *gate = red[2];
   if (tid < kC) {
     float t = 0.0f;
-    for (int s = 0; s < npart; ++s) t += partial[((size_t)im * npart + s) * kC + tid];
+    for (int k = 0; k < nc; ++k) t += cluster.map_shared_rank(csum, k)[tid];
     mean[tid] = t * inv_npix;
   }
+  cluster_arrive();                                          // done with the peers' sums
   __syncthreads();
-  if (tid < hidden) {
-    float t = 0.0f;
-    for (int c = 0; c < kC; ++c) t = fmaf(mean[c], w1[tid * kC + c], t);
-    hid[tid] = fmaxf(t + b1[tid], 0.0f);
+  ca_mlp<T, false>(cw, mean, hid, gate, hidden);
+  const int grp = tid % V::kPerPix;
+  float g[V::kVec];
+#pragma unroll
+  for (int k = 0; k < V::kVec; ++k) g[k] = gate[grp * V::kVec + k];
+  for (int v0 = 0; v0 < nvec; v0 += kCaPrefetch * kThreads) {
+    uint4 qn[kCaPrefetch];                                   // the next batch, in flight
+#pragma unroll
+    for (int j = 0; j < kCaPrefetch; ++j) {
+      const int v = v0 + (kCaPrefetch + j) * kThreads + tid;
+      if (v < nvec) qn[j] = ldg16(q + base + (size_t)v * V::kVec);
+    }
+#pragma unroll
+    for (int j = 0; j < kCaPrefetch; ++j) {
+      const int v = v0 + tid + j * kThreads;
+      if (v >= nvec) break;
+      float qf[V::kVec], rf[V::kVec], o[V::kVec];
+      unpack16<T>(qa[j], qf);
+      unpack16<T>(*reinterpret_cast<const uint4*>(rs + (size_t)v * 16), rf);
+#pragma unroll
+      for (int k = 0; k < V::kVec; ++k) o[k] = __fadd_rn(qf[k], __fmul_rn(rf[k], g[k]));
+      stg16(out + base + (size_t)v * V::kVec, pack16<T>(o));
+    }
+#pragma unroll
+    for (int j = 0; j < kCaPrefetch; ++j) qa[j] = qn[j];
   }
-  __syncthreads();
-  if (tid < kC) {
-    float t = 0.0f;
-    for (int k = 0; k < hidden; ++k) t = fmaf(hid[k], w2[tid * hidden + k], t);
-    gate[tid] = 1.0f / (1.0f + expf(-(t + b2[tid])));
+  cluster_wait();                              // no block leaves while a peer reads its sums
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 3)
+ca_two_pass_kernel(const T* __restrict__ q, const T* __restrict__ r,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, const float* __restrict__ b2,
+                   float* partial, float* gates, T* __restrict__ out, int nimg, int hw,
+                   int hidden, float inv_npix) {
+  using V = CaVec<T>;
+  __shared__ __align__(16) float red[kCaRowChunk][kC];  // block sums; partial rows
+  __shared__ float mlp[3][kC];                           // mean, hid, gate
+  const int tid = threadIdx.x, nch = (hw + kCaChunkPix - 1) / kCaChunkPix;
+  for (int u = blockIdx.x; u < nimg * nch; u += gridDim.x) {    // pass 1: chunk sums
+    const int im = u / nch, pc = u % nch * kCaChunkPix;
+    const int nvec = min(kCaChunkPix, hw - pc) * V::kPerPix;
+    const T* rb = r + ((size_t)im * hw + pc) * kC;
+    float acc[V::kVec] = {};
+    for (int v = tid; v < nvec; v += kThreads) {
+      float f[V::kVec];
+      unpack16<T>(ldg16(rb + (size_t)v * V::kVec), f);
+#pragma unroll
+      for (int k = 0; k < V::kVec; ++k) acc[k] += f[k];
+    }
+    ca_block_sum<T>(acc, red, partial + (size_t)u * kC);
   }
-  __syncthreads();
-  const long long per = (long long)hw * kC;
-  const long long e0 = per * chunk / nchunk, e1 = per * (chunk + 1) / nchunk;
-  const size_t base = (size_t)im * per;
-  for (long long e = e0 + tid; e < e1; e += kThreads) {
-    const float v = to_f(q[base + e]) + to_f(r[base + e]) * gate[e % kC];
-    out[base + e] = from_f<T>(v);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  grid.sync();
+  if ((int)blockIdx.x < nimg) {                                 // each sample's gate, once
+    CaWeights cw;
+    ca_load_weights(cw, w1, b1, w2, b2, hidden);
+    for (int im = blockIdx.x; im < nimg; im += gridDim.x) {
+      ca_sum_rows<true>(partial + (size_t)im * nch * kC, nch, red, mlp[0]);
+      if (tid < kC) mlp[0][tid] *= inv_npix;
+      __syncthreads();
+      ca_mlp<T, false>(cw, mlp[0], mlp[1], mlp[2], hidden);
+      if (tid < kC) gates[(size_t)im * kC + tid] = mlp[2][tid];
+    }
   }
+  CaStream<T, T, kCaBatch, false> st;
+  st.start(q, r, out, nullptr, (long long)nimg * hw);
+  st.load(st.v);
+  grid.sync();                                                  // pass 2: the stream
+  st.run(gates, hw);
 }
 
 template <int M>
@@ -922,19 +1021,73 @@ int launch_chain_f32(const void* x, const void* u, const float* bias, void* buf,
   return (int)cudaGetLastError();
 }
 
+// The cluster size ca_cluster_kernel takes for a sample of hw pixels of T:
+// the fewest blocks (1, 2, 4 or 8) whose slices fit kCaSliceMax, or 0 (the
+// two-pass kernel) when none does or such clusters cannot be resident.
+template <typename T>
+cudaError_t ca_route(int hw, int& nc) {
+  static bool done = false;
+  static int fits = -1;
+  nc = 0;
+  if (!done) {
+    cudaError_t e = allow_smem(ca_cluster_kernel<T>, kCaSliceMax, done);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(ca_cluster_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+  }
+  if (fits < 0) {                          // the largest cluster at the largest slice
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(8);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = kCaSliceMax;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 8;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, ca_cluster_kernel<T>, &cfg);
+    if (e != cudaSuccess) return e;
+    fits = n >= 1;
+  }
+  if (!fits) return cudaSuccess;
+  for (int k = 1; k <= 8; k *= 2)
+    if ((long long)((hw + k - 1) / k) * kC * sizeof(T) <= kCaSliceMax) {
+      nc = k;
+      break;
+    }
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch_ca(const void* q, const void* r, const float* w1, const float* b1,
-              const float* w2, const float* b2, float* partial, void* out,
-              int nimg, int hw, int hidden, int npart, int nchunk,
-              cudaStream_t stream) {
-  ca_pool_kernel<T><<<dim3(npart, nimg), kThreads, 0, stream>>>(
-      static_cast<const T*>(r), partial, hw);
-  cudaError_t e = cudaGetLastError();
+              const float* w2, const float* b2, float* scratch, void* out, int nimg,
+              int hw, int hidden, int device, cudaStream_t stream) {
+  int nc = 0;
+  cudaError_t e = ca_route<T>(hw, nc);
   if (e != cudaSuccess) return (int)e;
-  ca_gate_skip_kernel<T><<<dim3(nchunk, nimg), kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(r), partial, npart, w1, b1,
-      w2, b2, static_cast<T*>(out), hw, hidden, 1.0f / (float)hw);
-  return (int)cudaGetLastError();
+  const T* qt = static_cast<const T*>(q);
+  const T* rt = static_cast<const T*>(r);
+  T* ot = static_cast<T*>(out);
+  const float inv_npix = 1.0f / (float)hw;
+  if (nc > 0) {
+    const uint32_t smem = (uint32_t)((hw + nc - 1) / nc) * kC * sizeof(T);
+    return (int)ca_launch(ca_cluster_kernel<T>, nimg * nc, nc, smem, false, stream, qt, rt,
+                          w1, b1, w2, b2, ot, hw, hidden, inv_npix);
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  static int cache = 0;
+  int resident = 0;
+  if ((e = ca_resident(ca_two_pass_kernel<T>, device, cache, resident)) != cudaSuccess)
+    return (int)e;
+  const int units = nimg * ((hw + kCaChunkPix - 1) / kCaChunkPix);
+  float* gates = scratch + (size_t)units * kC;
+  return (int)ca_launch(ca_two_pass_kernel<T>, std::min(units, resident), 1, 0, true, stream,
+                        qt, rt, w1, b1, w2, b2, scratch, gates, ot, nimg, hw, hidden, inv_npix);
 }
 
 }  // namespace
@@ -990,21 +1143,40 @@ int sres_wino_chain(const void* x, const void* u, const float* bias, void* buf,
                 : launch_chain_f32<2>(x, u, bias, buf, y, nchain, nimg, h, w, relu, device, s);
 }
 
-// q, r, out: (nimg, hw, 64) NHWC; w1: (hidden, 64), b1: (hidden,),
-// w2: (64, hidden), b2: (64,) f32; partial: (nimg, npart, 64) f32 scratch.
+// The cluster size of ca_skip's one-launch kernel for (nimg, hw) in this
+// dtype: 1, 2, 4 or 8 (ca_cluster_kernel: r read once), 0 (the two-pass
+// kernel), or minus a cudaError_t.
+int sres_ca_skip_cluster(int nimg, int hw, int bf16_, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess && (nimg < 1 || hw < 1)) e = cudaErrorInvalidValue;
+  int nc = 0;
+  if (e == cudaSuccess) e = bf16_ ? ca_route<bf16>(hw, nc) : ca_route<float>(hw, nc);
+  return e != cudaSuccess ? -(int)e : nc;
+}
+
+// Floats of scratch sres_ca_skip needs for (nimg, hw): 0 on the cluster
+// kernel; the two-pass kernel's chunk sums and gates; or minus a cudaError_t.
+int sres_ca_skip_scratch(int nimg, int hw, int bf16_, int device) {
+  const int nc = sres_ca_skip_cluster(nimg, hw, bf16_, device);
+  if (nc != 0) return nc < 0 ? nc : 0;
+  return nimg * ((hw + kCaChunkPix - 1) / kCaChunkPix + 1) * kC;
+}
+
+// out = q + r * sigmoid(W2 relu(W1 mean(r) + b1) + b2), one launch.
+// q, r, out: (nimg, hw, 64) NHWC, 16-byte aligned; w1: (hidden, 64), b1:
+// (hidden,), w2: (64, hidden), b2: (64,) f32; scratch:
+// sres_ca_skip_scratch(...) floats (may be null when that is 0).
 int sres_ca_skip(const void* q, const void* r, const float* w1, const float* b1,
-                 const float* w2, const float* b2, float* partial, void* out,
-                 int nimg, int hw, int hidden, int npart, int nchunk, int bf16_,
-                 int device, void* stream) {
+                 const float* w2, const float* b2, float* scratch, void* out,
+                 int nimg, int hw, int hidden, int bf16_, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (hidden < 1 || hidden > kMaxHidden) return (int)cudaErrorInvalidValue;
+  if (hidden < 1 || hidden > kMaxHidden || nimg < 1 || hw < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_)
-    return launch_ca<bf16>(q, r, w1, b1, w2, b2, partial, out, nimg, hw, hidden,
-                           npart, nchunk, s);
-  return launch_ca<float>(q, r, w1, b1, w2, b2, partial, out, nimg, hw, hidden,
-                          npart, nchunk, s);
+    return launch_ca<bf16>(q, r, w1, b1, w2, b2, scratch, out, nimg, hw, hidden, device, s);
+  return launch_ca<float>(q, r, w1, b1, w2, b2, scratch, out, nimg, hw, hidden, device, s);
 }
 
 }  // extern "C"

@@ -20,7 +20,8 @@ attention:
   output in the activation dtype or f32). With flipped, transposed
   weights it is also the adjoint (dgrad) of a conv.
 - ``fgroup_ca``: sums the conv's per-tile partials in a fixed order →
-  mean → 1×1 → ReLU → 1×1 → sigmoid gate, then x + c·gate.
+  mean → 1×1 → ReLU → 1×1 → sigmoid gate, once per sample, then x +
+  c·gate (one cooperative launch, ``fg_ca_stream_kernel``).
 - ``fgroup_wgrad``: dW[tap] = Σ_pixels x_shift(tap)ᵀ · g and db = Σ g; in
   bf16 one launch whose clusters reduce on chip in a fixed order (in f32
   per-block partials and a fixed-order sum).
@@ -62,9 +63,7 @@ from sres_tpu_torch.ops.winograd_conv import _channels_last, _check_act, _stream
 LAUNCHES: Dict[str, int] = {"fgroup_conv": 0, "fgroup_ca": 0, "fgroup_wgrad": 0,
                             "fgroup_ca_bwd": 0}
 
-# spatial chunks per sample of the gate+skip pass and of the CA backward's
-# pooling pass
-_CA_GATE_SPLIT = 16
+# spatial chunks per sample of the CA backward's pooling pass
 _CA_POOL_SPLIT = 8
 
 
@@ -265,6 +264,8 @@ def _ca_cuda(x, c, part, cw1, cb1, cw2, cb2, stash_c):
         raise ValueError(f"part must be ({n}, P, {ch}) float32")
     hidden, ws = _ca_weights(lib, ch, x.device, cw1, cb1, cw2, cb2)
     x, c, part = _channels_last(x), _channels_last(c), part.contiguous()
+    if part.data_ptr() % 16:                   # the kernel reads its rows in float4
+        part = part.clone()
     xn = torch.empty_like(x, memory_format=torch.channels_last)
     gate = torch.empty((n, ch), dtype=f32, device=x.device)
     bf = x.dtype == torch.bfloat16
@@ -272,7 +273,7 @@ def _ca_cuda(x, c, part, cw1, cb1, cw2, cb2, stash_c):
     err = lib.sres_fg_ca(
         x.data_ptr(), c.data_ptr(), part.data_ptr(), part.shape[1],
         *(a.data_ptr() for a in ws), xn.data_ptr(), gate.data_ptr(), _ptr(cst),
-        n, h * w, hidden, _CA_GATE_SPLIT, int(bf), x.device.index or 0,
+        n, h * w, hidden, int(bf), x.device.index or 0,
         _stream(x.device))
     cuda.check(err, "fgroup_ca kernel")
     LAUNCHES["fgroup_ca"] += 1

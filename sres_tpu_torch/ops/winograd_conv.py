@@ -53,10 +53,8 @@ from sres_tpu_torch.ops.winograd import (at_apply, at_t_apply, bt_apply,
 LAUNCHES: Dict[str, int] = {"wino_conv": 0, "ca_skip": 0, "wino_conv_bwd": 0,
                             "ca_skip_bwd": 0, "wino_chain": 0}
 
-# channel-attention launch geometry: spatial chunks of the pooling pass and
-# of the gate+skip pass, per sample
+# spatial chunks per sample of the channel-attention backward's pooling pass
 _CA_POOL_SPLIT = 8
-_CA_GATE_SPLIT = 16
 
 
 def reset_launches() -> None:
@@ -371,14 +369,16 @@ def _ca_skip_cuda(q, r, caw1, cab1, caw2, cab2):
     hidden, ws = _ca_weights(lib, c, q.device, caw1, cab1, caw2, cab2)
     t, _, h, wd = q.shape
     q, r = _channels_last(q), _channels_last(r)
-    partial = torch.empty((t, _CA_POOL_SPLIT, c), dtype=torch.float32,
-                          device=q.device)
+    bf, dev = int(q.dtype == torch.bfloat16), q.device.index or 0
+    n = lib.sres_ca_skip_scratch(t, h * wd, bf, dev)
+    if n < 0:
+        cuda.check(-n, "ca_skip scratch")
+    scratch = torch.empty(n, dtype=torch.float32, device=q.device) if n else None
     out = torch.empty_like(q, memory_format=torch.channels_last)
     err = lib.sres_ca_skip(
         q.data_ptr(), r.data_ptr(), *(a.data_ptr() for a in ws),
-        partial.data_ptr(), out.data_ptr(), t, h * wd, hidden, _CA_POOL_SPLIT,
-        _CA_GATE_SPLIT, int(q.dtype == torch.bfloat16), q.device.index or 0,
-        _stream(q.device))
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), t, h * wd,
+        hidden, bf, dev, _stream(q.device))
     cuda.check(err, "ca_skip kernel")
     LAUNCHES["ca_skip"] += 1
     return out
@@ -499,7 +499,14 @@ def ca_skip(q: torch.Tensor, r: torch.Tensor, caw1: torch.Tensor,
             cab1: torch.Tensor, caw2: torch.Tensor,
             cab2: torch.Tensor) -> torch.Tensor:
     """RCAB channel attention + block skip: q + r·gate(r). CUDA tensor →
-    kernel (a pooling launch, then a gate+skip launch); CPU → twin."""
+    one kernel launch (``ops/cuda/winograd.cu`` kernel (b)); CPU → twin.
+    Which kernel is the C library's choice by shape
+    (``sres_ca_skip_cluster``): when a sample's r fits the shared memory of
+    a cluster of 1, 2, 4 or 8 blocks (up to 580 pixels a block in bf16,
+    290 in f32: 48×48 LR tiles in either dtype), ``ca_cluster_kernel``,
+    which reads r from device memory once; for larger samples (above 4640
+    pixels in bf16, as 96×96 LR; above 2320 in f32) ``ca_two_pass_kernel``,
+    one cooperative launch that reads r twice."""
     if q.device.type == "cpu":
         return ca_skip_plain(q, r, caw1, cab1, caw2, cab2)
     return _ca_skip_cuda(q, r, caw1, cab1, caw2, cab2)

@@ -134,14 +134,72 @@ def test_cached_wino_conv_is_one_launch(dev):
     assert twc._operand(ku, 4, x, 64, bwd=True) is ku.bwd
 
 
+# (T, C, H, W) of the channel-attention cases: the flagship's batch, one
+# sample of it, samples too large for a cluster's shared memory, an odd hw
+# (117 pixels), and a small batch
+_CA_SHAPES = {"b72": (72, 64, 48, 48), "n1": (1, 64, 48, 48), "large": (2, 64, 192, 192),
+              "odd": (3, 64, 9, 13), "small": (3, 64, 16, 32)}
+# the cluster size ca_skip's kernel takes for each, (bf16, f32); 0: the
+# two-pass kernel
+_CA_CLUSTER = {"b72": (4, 8), "n1": (4, 8), "large": (0, 0), "odd": (1, 1), "small": (1, 2)}
+
+
+def _ca_weights(rng, dev, hidden):
+    return [_t(rng, s, dev, 0.1) for s in ((hidden, 64), (hidden,), (64, hidden), (64,))]
+
+
 @pytest.mark.cuda
-def test_ca_skip_matches_twin(dev):
-    rng = np.random.default_rng(10)
-    q, r = _t(rng, (3, 64, 16, 16), dev), _t(rng, (3, 64, 16, 16), dev)
-    ca = [_t(rng, s, dev, 0.1) for s in ((32, 64), (32,), (64, 32), (64,))]
+@pytest.mark.parametrize("hidden", [4, 32, 64])
+@pytest.mark.parametrize("case", list(_CA_SHAPES))
+def test_ca_skip_matches_twin(dev, case, hidden):
+    """ca_skip on the cluster kernel (r read once) and on the two-pass
+    kernel, at the cluster size each shape takes: against the twin in f32
+    and bf16, one launch a call, the same bits on two calls."""
+    from sres_tpu_torch.ops import cuda
+    shape = _CA_SHAPES[case]
+    rng = np.random.default_rng(10 + hidden)
+    q, r = _t(rng, shape, dev), _t(rng, shape, dev) + 0.3
+    ca = _ca_weights(rng, dev, hidden)
+    lib = cuda.load()
+    hw = shape[2] * shape[3]
+    assert tuple(lib.sres_ca_skip_cluster(shape[0], hw, bf, 0) for bf in (1, 0)) == \
+        _CA_CLUSTER[case]
+    launches = twc.LAUNCHES["ca_skip"]
     _check(lambda q_, r_: twc.ca_skip(q_, r_, *ca),
            lambda q_, r_: twc.ca_skip_plain(q_, r_, *ca),
            (q, r), (q.bfloat16(), r.bfloat16()))
+    assert twc.LAUNCHES["ca_skip"] == launches + 2
+    for dt in (torch.float32, torch.bfloat16):
+        qq, rr = q.to(dt), r.to(dt)
+        first, second = twc.ca_skip(qq, rr, *ca), twc.ca_skip(qq, rr, *ca)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_channel_attention_is_one_kernel_launch(dev):
+    """At the flagship's shape in bf16, ca_skip is one ca_cluster_kernel
+    launch and fgroup_ca one fg_ca_stream_kernel launch (the profiler's
+    device kernels of one call, operands already channels_last)."""
+    from sres_tpu_torch.ops import fused_group as fg
+    rng = np.random.default_rng(12)
+    cl = dict(memory_format=torch.channels_last)
+    q, r = (_t(rng, _CA_SHAPES["b72"], dev).bfloat16().contiguous(**cl) for _ in range(2))
+    c = _t(rng, _CA_SHAPES["b72"], dev).contiguous(**cl)
+    part = _t(rng, (72, 18, 64), dev)
+    ca = _ca_weights(rng, dev, 32)
+    calls = {"ca_cluster_kernel": lambda: twc.ca_skip(q, r, *ca),
+             "fg_ca_stream_kernel": lambda: fg.fgroup_ca(q, c, part, *ca, stash_c=True)}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and name in kernels[0], kernels
 
 
 @pytest.mark.cuda
@@ -612,25 +670,35 @@ def test_fgroup_conv_and_wgrad_are_deterministic(dev, shape):
 
 
 @pytest.mark.cuda
-def test_fgroup_ca_and_ca_bwd_match_twin(dev):
-    """Kernels (b) and (d): gate + skip from conv partials (and the c
-    stash), and the channel-attention backward."""
+@pytest.mark.parametrize("stash", [False, True])
+@pytest.mark.parametrize("hidden", [4, 32, 64])
+@pytest.mark.parametrize("case", list(_CA_SHAPES))
+def test_fgroup_ca_and_ca_bwd_match_twin(dev, case, hidden, stash):
+    """Kernels (b) and (d): gate + skip from conv partials (the gate, and
+    the c stash when asked), the same bits on two calls, one launch a call;
+    and the channel-attention backward."""
     from sres_tpu_torch.ops import fused_group as fg
-    shape = (3, 64, 16, 32)
+    shape = _CA_SHAPES[case]
     x, c, g, wk, b, gate, _ = _fg_operands(dev, shape, 53)
     c = c + 0.3
-    ca = [_t(np.random.default_rng(54), s, dev, 0.1)
-          for s in ((32, 64), (32,), (64, 32), (64,))]
-    part = c.sum((2, 3))[:, None] / 2
-    part = torch.cat([part, part], 1)
+    ca = _ca_weights(np.random.default_rng(54), dev, hidden)
+    part = c.sum((2, 3))[:, None] / 3
+    part = torch.cat([part, part, part], 1)
 
     def fwd(fn, dt):
-        xn, gt, cst = fn(x.to(dt), c, part, *ca, stash_c=True)
-        return xn, gt, cst
+        xn, gt, cst = fn(x.to(dt), c, part, *ca, stash_c=stash)
+        assert (cst is None) != stash
+        return (xn, gt, cst) if stash else (xn, gt)
 
+    launches = fg.LAUNCHES["fgroup_ca"]
     _check_many("fgroup_ca", fwd(fg.fgroup_ca, torch.float32),
                 fwd(fg.fgroup_ca_plain, torch.float32),
                 fwd(fg.fgroup_ca, torch.bfloat16), fwd(fg.fgroup_ca_plain, torch.bfloat16))
+    assert fg.LAUNCHES["fgroup_ca"] == launches + 2
+    for dt in (torch.float32, torch.bfloat16):
+        first, second = fwd(fg.fgroup_ca, dt), fwd(fg.fgroup_ca, dt)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
     bwd = lambda fn, dt: fn(g.to(dt), c.to(dt), gate, *ca)
     _check_many("fgroup_ca_bwd", bwd(fg.fgroup_ca_bwd, torch.float32),
                 bwd(fg.fgroup_ca_bwd_plain, torch.float32),
