@@ -34,7 +34,13 @@ Phases, one line each (every line carries the card's name and power limit):
    two calls must give the same bits; each mode a training step calls
    (``relu``, ``ca``, ``accum``, ``f32g``) timed against its own bound and
    cuDNN's ``convolution_backward``, and a device-time profile of one call;
-7. kernel (d), the channel-attention backward, against its plain twin;
+7. kernel (d), the channel-attention backward (``ca_skip_bwd_kernel``, one
+   cooperative launch), against its plain twin at (72, 64, 48, 48), at
+   samples too large for a block (2, 64, 192, 192) and at an odd pixel
+   count (3, 64, 9, 13), c2 in f32 and bf16; two calls give the same bits;
+   one call is one kernel (torch.profiler); device time (``device_ms``) in
+   bf16, f32 and at (2, 64, 192, 192), the events beside, each against its
+   bound;
 8. one residual group's backward (20 RCABs + trailing conv, m=4, b72): the
    gradients of sum(y·G) and the stash, kernels against plain twins;
 9. the train slice: the same model through build_model → build_optimizer →
@@ -71,7 +77,10 @@ Phases, one line each (every line carries the card's name and power limit):
    CA prologue and mask, carried cotangent and group skip), the weight
    gradient (``fg_wgrad_wgmma_kernel``: plain, CA prologue, db from
    partials), gate + skip (``fg_ca_stream_kernel``, serving and with the
-   stash, each against its own bound) and the CA backward; each mode timed
+   stash, each against its own bound) and the CA backward
+   (``fg_ca_bwd_kernel``, one cooperative launch; also at (2, 64, 192, 192)
+   and (3, 64, 9, 13), the same bits on two calls, one kernel a call, timed
+   at (2, 64, 192, 192) too); each mode timed
    in device time (``device_ms``; back-to-back events beside) against its
    bound and against ``F.conv2d`` and cuDNN's dgrad and wgrad,
    channels_last weights;
@@ -153,7 +162,9 @@ with phase 13's launches and phase 10's and 11's times,
 kernels, with each mode's times in ``modes``; ``ca_skip`` naming its two
 kernels, the cluster size at the flagship's shape and the two-pass
 kernel's time at (2, 64, 192, 192); ``fgroup_ca`` naming its kernel, with
-the serving and stash modes' times and bounds; ``serve_launches`` over the three
+the serving and stash modes' times and bounds; ``ca_skip_bwd`` and
+``fgroup_ca_bwd`` naming their kernels, each mode's time and bound in
+``modes`` and ``mode_bound_ms``; ``serve_launches`` over the three
 requests of phases 5, 12, 16, 20 and 23; the chain's over the one probe
 launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
@@ -700,31 +711,88 @@ def phase_conv_bwd(dev, rng):
                 modes=modes)
 
 
+# the channel-attention backwards' extra shapes: samples too large for one
+# block, and an odd pixel count (117) with fewer pixels than blocks
+CA_LARGE, CA_ODD = (2, 64, 192, 192), (3, 64, 9, 13)
+
+
+def one_kernel(label, fn, name) -> None:
+    """One call of ``fn`` (its operands already prepared) is one device
+    kernel whose name holds ``name``, by torch.profiler's device rows; raises
+    otherwise. The capture holds the call between 64 launches of a marker
+    kernel (``torch.cuda._sleep``, named ``spin_kernel``) on each side: after
+    the SwinIR phases the H100's captures lost their first few device
+    records (5 of 129), so a capture of one short launch alone came back
+    with no device rows at all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1)
+        fn()
+        for _ in range(64):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count) for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    markers = sum(n for k, n in rows if "spin_kernel" in k)
+    kernels = [(k, n) for k, n in rows if "spin_kernel" not in k]
+    say(label, device_kernels=[(k[:80], n) for k, n in kernels], markers=markers)
+    if markers < 64 or len(kernels) != 1 or kernels[0][1] != 1 or name not in kernels[0][0]:
+        raise CheckFailed(f"{label}: expected one {name} launch between 64 + 64 markers, "
+                          f"got {kernels} and {markers} markers")
+
+
 def phase_ca_bwd(dev, rng):
+    """Phase 7: ca_skip_bwd (one cooperative launch, ca_skip_bwd_kernel)
+    against its twin at the flagship's shape, at samples too large for a
+    block and at an odd pixel count; the same bits on two calls; one kernel
+    a call; device time and events beside each mode's bound."""
     import torch
     from sres_tpu_torch.ops.winograd_conv import ca_skip_bwd, ca_skip_bwd_plain
     c, hid = SHAPE[1], SHAPE[1] // MODEL_CFG["cbottleneck"]
-    da, c2 = _rand(rng, dev, SHAPE), _rand(rng, dev, SHAPE, shift=0.3)
     ws = [torch.from_numpy(rng.uniform(-a, a, s).astype(np.float32)).to(dev)
           for a, s in ((1 / 8, (hid, c)), (1 / 8, (hid,)),
                        (1 / math.sqrt(hid), (c, hid)), (1 / math.sqrt(hid), (c,)))]
-    c2b = c2.bfloat16()
-    outs = [fn(da, cc, *ws) for fn, cc in ((ca_skip_bwd, c2), (ca_skip_bwd_plain, c2),
-                                           (ca_skip_bwd, c2b), (ca_skip_bwd_plain, c2b))]
-    torch.cuda.synchronize()
-    worst = 0.0
-    for i, name in enumerate(("gate", "ds", "dcaw1", "dcab1", "dcaw2", "dcab2")):
-        out = check_pair(f"ca_skip_bwd_{name}", *(o[i] for o in outs))
-        say("7 kernel ca_skip_bwd", **out)
-        worst = max(worst, out["bf16_vs_plain_abs"])
-    ms = time_ms(lambda: ca_skip_bwd(da, c2b, *ws))
-    plain_ms = time_ms(lambda: ca_skip_bwd_plain(da, c2b, *ws))
-    # da (f32) and c2 (bf16) read; the per-sample outputs are 37 KB
-    bound = bound_ms(4 * da.numel() + 2 * c2b.numel(), 0.0)
-    say("7 kernel ca_skip_bwd timing", shape=SHAPE, dtype="bf16", ms=ms,
-        plain_ms=plain_ms, bound_ms=bound)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=None)
+    worst, ops = 0.0, {}
+    for shape in (SHAPE, CA_LARGE, CA_ODD):
+        da, c2 = _rand(rng, dev, shape), _rand(rng, dev, shape, shift=0.3)
+        c2b = c2.bfloat16()
+        outs = [fn(da, cc, *ws) for fn, cc in ((ca_skip_bwd, c2), (ca_skip_bwd_plain, c2),
+                                               (ca_skip_bwd, c2b), (ca_skip_bwd_plain, c2b))]
+        torch.cuda.synchronize()
+        for i, name in enumerate(("gate", "ds", "dcaw1", "dcab1", "dcaw2", "dcab2")):
+            out = check_pair(f"ca_skip_bwd_{name} {shape}", *(o[i] for o in outs))
+            say("7 kernel ca_skip_bwd", **out)
+            if shape == SHAPE:
+                worst = max(worst, out["bf16_vs_plain_abs"])
+        for cc in (c2, c2b):
+            again = ca_skip_bwd(da, cc, *ws)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs[0 if cc is c2 else 2], again)):
+                raise CheckFailed(f"ca_skip_bwd {shape} {cc.dtype}: two calls differ")
+        ops[shape] = (da, c2, c2b)
+        del outs
+    da, c2, c2b = ops[SHAPE]
+    one_kernel("7 kernel ca_skip_bwd launch", lambda: ca_skip_bwd(da, c2b, *ws),
+               "ca_skip_bwd_kernel")
+    # da (f32) and c2 read once; the per-sample outputs are 37 KB
+    modes = {"bf16": (lambda: ca_skip_bwd(da, c2b, *ws), 6 * da.numel()),
+             "f32": (lambda: ca_skip_bwd(da, c2, *ws), 8 * da.numel())}
+    dal, _, c2bl = ops[CA_LARGE]
+    modes["bf16 " + "x".join(map(str, CA_LARGE))] = (lambda: ca_skip_bwd(dal, c2bl, *ws),
+                                                     6 * dal.numel())
+    t = {k: device_ms(f) for k, (f, _) in modes.items()}
+    t_events = {k: time_ms(f) for k, (f, _) in modes.items()}
+    bounds = {k: bound_ms(b, 0.0) for k, (_, b) in modes.items()}
+    plain_ms = device_ms(lambda: ca_skip_bwd_plain(da, c2b, *ws))
+    say("7 kernel ca_skip_bwd timing", shape=SHAPE, device_ms=t, events_ms=t_events,
+        bound_ms=bounds, plain_ms=plain_ms)
+    return dict(max_abs_err=worst, ms=t["bf16"], plain_ms=plain_ms, bound_ms=bounds["bf16"],
+                bound_by="bytes", library_ms=None, kernels=["ca_skip_bwd_kernel"], modes=t,
+                mode_bound_ms=bounds)
 
 
 def _cat(ts):
@@ -1431,12 +1499,26 @@ def phase_fg_kernels(dev, rng):
     check("fgroup_ca", "gate+skip", outs)
     gate = outs[0][1]
     del outs
-    outs = [fn(o["r"].to(dt), cf.to(dt), gate, *ca) for fn, dt in (
-        (fg.fgroup_ca_bwd, f32), (fg.fgroup_ca_bwd_plain, f32), (fg.fgroup_ca_bwd, bf16),
-        (fg.fgroup_ca_bwd_plain, bf16))]
-    torch.cuda.synchronize()
-    check("fgroup_ca_bwd", "ca backward", outs)
-    del outs
+    # the CA backward (one cooperative launch, fg_ca_bwd_kernel): at the
+    # serving shape on the conv's output and the forward's gate, and at
+    # samples too large for a block and an odd pixel count; the same bits on
+    # two calls
+    ca_bwd_ops = {SHAPE: (o["r"], cf, gate)}
+    for shape in (CA_LARGE, CA_ODD):
+        ca_bwd_ops[shape] = (_rand(rng, dev, shape), _rand(rng, dev, shape, shift=0.3),
+                             _rand(rng, dev, (shape[0], c)).sigmoid())
+    for shape, (g_, c_, gt_) in ca_bwd_ops.items():
+        outs = [fn(g_.to(dt), c_.to(dt), gt_, *ca) for fn, dt in (
+            (fg.fgroup_ca_bwd, f32), (fg.fgroup_ca_bwd_plain, f32), (fg.fgroup_ca_bwd, bf16),
+            (fg.fgroup_ca_bwd_plain, bf16))]
+        torch.cuda.synchronize()
+        check("fgroup_ca_bwd", f"ca backward {shape}", outs)
+        for i, dt in ((0, f32), (2, bf16)):
+            again = fg.fgroup_ca_bwd(g_.to(dt), c_.to(dt), gt_, *ca)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(outs[i], again)):
+                raise CheckFailed(f"fgroup_ca_bwd {shape} {dt}: two calls differ")
+        del outs
 
     # timing at the serving shape, bf16, in device time (device_ms), with the
     # back-to-back events of time_ms beside; cuDNN gets channels_last weights
@@ -1512,14 +1594,22 @@ def phase_fg_kernels(dev, rng):
         bound_ms=bounds["serve"], stash_bound_ms=bounds["stash"])
 
     cb = cf.bfloat16()
-    ms = device_ms(lambda: fg.fgroup_ca_bwd(gb, cb, gate, *ca))
+    one_kernel("14 kernel fgroup_ca_bwd launch", lambda: fg.fgroup_ca_bwd(gb, cb, gate, *ca),
+               "fg_ca_bwd_kernel")
+    gL, cL, gtL = (t.bfloat16() if t.dim() == 4 else t for t in ca_bwd_ops[CA_LARGE])
+    modes = {"bf16": (lambda: fg.fgroup_ca_bwd(gb, cb, gate, *ca), 2 * act),
+             "bf16 " + "x".join(map(str, CA_LARGE)): (
+                 lambda: fg.fgroup_ca_bwd(gL, cL, gtL, *ca), 4 * gL.numel())}
+    t = {k: device_ms(f) for k, (f, _) in modes.items()}        # g and c read (bf16)
+    t_events = {k: time_ms(f) for k, (f, _) in modes.items()}
+    bounds = {k: bound_ms(b, 0.0) for k, (_, b) in modes.items()}
     plain_ms = device_ms(lambda: fg.fgroup_ca_bwd_plain(gb, cb, gate, *ca))
-    nbytes = 2 * act                                  # g and c read (bf16)
-    res["fgroup_ca_bwd"] = dict(max_abs_err=worst["fgroup_ca_bwd"], ms=ms,
-                                plain_ms=plain_ms, bound_ms=bound_ms(nbytes, 0.0),
-                                bound_by="bytes", library_ms=None)
-    say("14 kernel fgroup_ca_bwd timing", shape=SHAPE, dtype="bf16", ms=ms,
-        plain_ms=plain_ms, bound_ms=res["fgroup_ca_bwd"]["bound_ms"])
+    res["fgroup_ca_bwd"] = dict(max_abs_err=worst["fgroup_ca_bwd"], ms=t["bf16"],
+                                plain_ms=plain_ms, bound_ms=bounds["bf16"], bound_by="bytes",
+                                library_ms=None, kernels=["fg_ca_bwd_kernel"], modes=t,
+                                mode_bound_ms=bounds)
+    say("14 kernel fgroup_ca_bwd timing", shape=SHAPE, device_ms=t, events_ms=t_events,
+        bound_ms=bounds, plain_ms=plain_ms)
     return res
 
 

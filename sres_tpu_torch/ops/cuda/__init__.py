@@ -67,7 +67,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_wino_conv_bwd.restype = i
     lib.sres_wino_conv_bwd.argtypes = [vp] * 10 + [i] * 8 + [vp]
     lib.sres_ca_skip_bwd.restype = i
-    lib.sres_ca_skip_bwd.argtypes = [vp] * 14 + [i] * 6 + [vp]
+    lib.sres_ca_skip_bwd.argtypes = [vp] * 13 + [i] * 5 + [vp]
+    for name in ("sres_ca_skip_bwd_scratch", "sres_fg_ca_bwd_scratch"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [i] * 4
     for name in ("sres_wattn_tile", "sres_wattn_max_tokens", "sres_wattn_bwd_proj_rows"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = []
@@ -88,7 +91,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_fg_wgrad.restype = i
     lib.sres_fg_wgrad.argtypes = [vp] * 5 + [i] + [vp] * 3 + [i] * 5 + [vp]
     lib.sres_fg_ca_bwd.restype = i
-    lib.sres_fg_ca_bwd.argtypes = [vp] * 13 + [i] * 6 + [vp]
+    lib.sres_fg_ca_bwd.argtypes = [vp] * 12 + [i] * 5 + [vp]
     return lib
 
 

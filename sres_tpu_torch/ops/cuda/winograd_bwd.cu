@@ -59,16 +59,19 @@
 // kernel the recompute of V and dM takes longer than the exchange of dM
 // and the products together.
 
-// (K2) ca_skip_bwd, three launches: per-(sample, chunk) partial sums of c2
-// and of da * c2 (split as the forward's pooling), one block per sample for
-// the 32-wide MLP backward (gate, ds = dz1 . W1 / npix), and one small
-// kernel summing the weight gradients over samples. Bound: one read of da
-// (f32) and c2, 63 MB at bf16, 19 us.
+// (K2) ca_skip_bwd, one cooperative launch (ca_skip_bwd_kernel, the shared
+// design of ca_common.cuh's ca_bwd): the sums of c2 and of da * c2 over
+// equal ranges of the pixels in 16-byte vectors, da and c2 read once; after
+// a grid barrier each sample's MLP backward over the warps (gate
+// recomputed, ds = W1^T dz1 / npix); once a count shows them all done, the
+// weight gradients summed over samples in order, one output a thread.
+// Bound: one read of da (f32) and c2, 63.7 MB at bf16, 19.0 us.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
+#include "ca_common.cuh"
 #include "wino_common.cuh"
 
 namespace {
@@ -659,115 +662,20 @@ wino_bwd_sum_kernel(const float* __restrict__ dupart, int nrng, int ndu,
 }
 
 // ------------------------------------------------ (K2) channel attention
-// (K2.1) per (sample, chunk): partial sums of c2 and of da * c2 per channel
+// Vectors a thread has in flight in the stream (48 bytes each with c2 in
+// bf16), and the blocks an SM.
+constexpr int kCaBwdBatch = 4, kCaBwdBlocks = 2;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ca_bwd_pool_kernel(const float* __restrict__ da, const T* __restrict__ c2,
-                   float* __restrict__ partial, int hw) {
-  const int s = blockIdx.x, nsplit = gridDim.x, im = blockIdx.y;
-  const int c = threadIdx.x % kC, lane = threadIdx.x / kC;
-  constexpr int kLanes = kThreads / kC;
-  const int p0 = (int)((long long)hw * s / nsplit);
-  const int p1 = (int)((long long)hw * (s + 1) / nsplit);
-  const size_t base = (size_t)im * hw * kC + c;
-  float a_s = 0.0f, a_g = 0.0f;
-  for (int p = p0 + lane; p < p1; p += kLanes) {
-    const float v = to_f(c2[base + (size_t)p * kC]);
-    a_s += v;
-    a_g = fmaf(da[base + (size_t)p * kC], v, a_g);
-  }
-  __shared__ float red[2][kThreads];
-  red[0][threadIdx.x] = a_s;
-  red[1][threadIdx.x] = a_g;
-  __syncthreads();
-  if (threadIdx.x < kC) {
-    float ts = 0.0f, tg = 0.0f;
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) {
-      ts += red[0][l * kC + c];
-      tg += red[1][l * kC + c];
-    }
-    float* pp = partial + (((size_t)im * nsplit + s) * 2) * kC + c;
-    pp[0] = ts;
-    pp[kC] = tg;
-  }
+__global__ void __launch_bounds__(kThreads, kCaBwdBlocks) ca_skip_bwd_kernel(const CaBwdArgs a) {
+  ca_bwd<float, T, false, kCaBwdBatch>(a);
 }
 
-// (K2.2) one block per sample: s, h, gate recomputed; dg; the MLP backward.
-// work rows per sample: [s (64) | dz2 (64) | h (64) | dz1 (64)].
-__global__ void __launch_bounds__(kThreads)
-ca_bwd_mlp_kernel(const float* __restrict__ partial, int npart,
-                  const float* __restrict__ w1, const float* __restrict__ b1,
-                  const float* __restrict__ w2, const float* __restrict__ b2,
-                  float* __restrict__ gate_out, float* __restrict__ ds_out,
-                  float* __restrict__ work, int hidden, float inv_npix) {
-  const int im = blockIdx.x, tid = threadIdx.x;
-  __shared__ float sm[kC], dg[kC], hid[kMaxHidden], dz2[kC], dz1[kMaxHidden];
-  float* wk = work + (size_t)im * 4 * kC;
-  if (tid < kC) {
-    float ts = 0.0f, tg = 0.0f;
-    for (int s = 0; s < npart; ++s) {
-      const float* pp = partial + (((size_t)im * npart + s) * 2) * kC + tid;
-      ts += pp[0];
-      tg += pp[kC];
-    }
-    sm[tid] = ts * inv_npix;
-    dg[tid] = tg;
-    wk[tid] = sm[tid];
-  }
-  __syncthreads();
-  if (tid < hidden) {
-    float t = 0.0f;
-    for (int c = 0; c < kC; ++c) t = fmaf(sm[c], w1[tid * kC + c], t);
-    hid[tid] = fmaxf(t + b1[tid], 0.0f);
-    wk[2 * kC + tid] = hid[tid];
-  }
-  __syncthreads();
-  if (tid < kC) {
-    float t = 0.0f;
-    for (int k = 0; k < hidden; ++k) t = fmaf(hid[k], w2[tid * hidden + k], t);
-    const float gt = 1.0f / (1.0f + expf(-(t + b2[tid])));
-    gate_out[(size_t)im * kC + tid] = gt;
-    dz2[tid] = dg[tid] * gt * (1.0f - gt);
-    wk[kC + tid] = dz2[tid];
-  }
-  __syncthreads();
-  if (tid < hidden) {
-    float t = 0.0f;
-    for (int c = 0; c < kC; ++c) t = fmaf(dz2[c], w2[c * hidden + tid], t);
-    dz1[tid] = hid[tid] > 0.0f ? t : 0.0f;
-    wk[3 * kC + tid] = dz1[tid];
-  }
-  __syncthreads();
-  if (tid < kC) {
-    float t = 0.0f;
-    for (int k = 0; k < hidden; ++k) t = fmaf(dz1[k], w1[k * kC + tid], t);
-    ds_out[(size_t)im * kC + tid] = t * inv_npix;
-  }
-}
-
-// (K2.3) weight gradients summed over samples in order: thread e = (k, c)
-// gives dW1[k][c] and dW2[c][k]; e < hidden also db1, e < 64 also db2.
-__global__ void __launch_bounds__(kThreads)
-ca_bwd_wgrad_kernel(const float* __restrict__ work, int nimg, int hidden,
-                    float* __restrict__ dw1, float* __restrict__ db1,
-                    float* __restrict__ dw2, float* __restrict__ db2) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= hidden * kC) return;
-  const int k = e / kC, c = e % kC;
-  float a1 = 0.0f, a2 = 0.0f, ab1 = 0.0f, ab2 = 0.0f;
-  for (int im = 0; im < nimg; ++im) {
-    const float* wk = work + (size_t)im * 4 * kC;
-    const float s = wk[c], d2 = wk[kC + c], h = wk[2 * kC + k], d1 = wk[3 * kC + k];
-    a1 = fmaf(d1, s, a1);
-    a2 = fmaf(d2, h, a2);
-    ab1 += d1;
-    ab2 += d2;
-  }
-  dw1[k * kC + c] = a1;
-  dw2[c * hidden + k] = a2;
-  if (c == 0) db1[k] = ab1;
-  if (k == 0) db2[c] = ab2;
+// The kernel's resident blocks on the card, queried once per instance.
+template <typename T>
+cudaError_t ca_skip_bwd_resident(int device, int& resident) {
+  static int cache = 0;
+  return ca_resident(ca_skip_bwd_kernel<T>, device, cache, resident);
 }
 
 // ------------------------------------------------------------ launchers
@@ -886,32 +794,45 @@ int sres_wino_conv_bwd(const void* g, const void* x, const void* y, const void* 
                                 out_mode, s);
 }
 
-// da (nimg, hw, 64) f32; c2 (nimg, hw, 64) of float or bf16; w1 (hidden, 64),
-// b1 (hidden,), w2 (64, hidden), b2 (64,) f32. Scratch: partial (nimg, npart,
-// 2, 64), work (nimg, 4, 64) f32. Out: gate, ds (nimg, 64); dw1 (hidden, 64),
-// db1 (hidden,), dw2 (64, hidden), db2 (64,), all f32.
+// Floats of scratch sres_ca_skip_bwd needs (partial rows and the rows of
+// the weight gradient), or minus a cudaError_t.
+int sres_ca_skip_bwd_scratch(int nimg, int hw, int bf16_, int device) {
+  if (nimg < 1 || hw < 1) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  int resident = 0;
+  if (e == cudaSuccess)
+    e = bf16_ ? ca_skip_bwd_resident<bf16>(device, resident)
+              : ca_skip_bwd_resident<float>(device, resident);
+  if (e != cudaSuccess) return -(int)e;
+  int grid = 0, nrow = 0;
+  ca_bwd_plan(nimg, hw, bf16_ ? CaVec<bf16>::kPerPix : CaVec<float>::kPerPix, resident, grid,
+              nrow);
+  const long long n = ca_bwd_scratch(nimg, nrow, CaBwdRows<false>::kN);
+  return n > 0x7fffffff ? -(int)cudaErrorInvalidValue : (int)n;
+}
+
+// da (nimg, hw, 64) f32; c2 (nimg, hw, 64) of float or bf16, both 16-byte
+// aligned; w1 (hidden, 64), b1 (hidden,), w2 (64, hidden), b2 (64,) f32;
+// scratch: sres_ca_skip_bwd_scratch floats. Out: gate, ds (nimg, 64); dw1
+// (hidden, 64), db1 (hidden,), dw2 (64, hidden), db2 (64,), all f32. One
+// cooperative launch (ca_skip_bwd_kernel).
 int sres_ca_skip_bwd(const float* da, const void* c2, const float* w1, const float* b1,
-                     const float* w2, const float* b2, float* partial, float* work,
-                     float* gate, float* ds, float* dw1, float* db1, float* dw2,
-                     float* db2, int nimg, int hw, int hidden, int npart, int bf16_,
-                     int device, void* stream) {
+                     const float* w2, const float* b2, float* scratch, float* gate, float* ds,
+                     float* dw1, float* db1, float* dw2, float* db2, int nimg, int hw,
+                     int hidden, int bf16_, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (hidden < 1 || hidden > kMaxHidden || npart < 1) return (int)cudaErrorInvalidValue;
+  if (hidden < 1 || hidden > kMaxHidden || nimg < 1 || hw < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_)
-    ca_bwd_pool_kernel<bf16><<<dim3(npart, nimg), kThreads, 0, s>>>(
-        da, static_cast<const bf16*>(c2), partial, hw);
-  else
-    ca_bwd_pool_kernel<float><<<dim3(npart, nimg), kThreads, 0, s>>>(
-        da, static_cast<const float*>(c2), partial, hw);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ca_bwd_mlp_kernel<<<nimg, kThreads, 0, s>>>(partial, npart, w1, b1, w2, b2, gate, ds,
-                                             work, hidden, 1.0f / (float)hw);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  ca_bwd_wgrad_kernel<<<(hidden * kC + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      work, nimg, hidden, dw1, db1, dw2, db2);
-  return (int)cudaGetLastError();
+  const CaBwdArgs a{da, c2, nullptr, w1, b1, w2, b2, scratch, gate, ds, dw1, db1, dw2, db2,
+                    nimg, hw, hidden, 0};
+  int resident = 0;
+  if (bf16_) {
+    if ((e = ca_skip_bwd_resident<bf16>(device, resident)) != cudaSuccess) return (int)e;
+    return (int)ca_bwd_launch(ca_skip_bwd_kernel<bf16>, a, CaVec<bf16>::kPerPix, resident, s);
+  }
+  if ((e = ca_skip_bwd_resident<float>(device, resident)) != cudaSuccess) return (int)e;
+  return (int)ca_bwd_launch(ca_skip_bwd_kernel<float>, a, CaVec<float>::kPerPix, resident, s);
 }
 
 }  // extern "C"

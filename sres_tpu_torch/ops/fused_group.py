@@ -58,13 +58,11 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from sres_tpu_torch.ops.winograd_conv import _channels_last, _check_act, _stream
+from sres_tpu_torch.ops.winograd_conv import (_channels_last, _check_act, _scratch,
+                                             _stream)
 
 LAUNCHES: Dict[str, int] = {"fgroup_conv": 0, "fgroup_ca": 0, "fgroup_wgrad": 0,
                             "fgroup_ca_bwd": 0}
-
-# spatial chunks per sample of the CA backward's pooling pass
-_CA_POOL_SPLIT = 8
 
 
 def reset_launches() -> None:
@@ -321,15 +319,15 @@ def _ca_bwd_cuda(g, c, gate, cw1, cb1, cw2, cb2):
     c, g = _channels_last(c), _like(g, c, "g")
     gate = _vec(gate, (n, ch), c.device, "gate")
     hidden, ws = _ca_weights(lib, ch, c.device, cw1, cb1, cw2, cb2)
+    bf, dev = int(c.dtype == torch.bfloat16), c.device.index or 0
+    nscratch = _scratch(lib.sres_fg_ca_bwd_scratch, n, h * w, bf, dev)
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=c.device)
-    partial, work = emp(n, _CA_POOL_SPLIT, 2, ch), emp(n, 6, ch)
-    ds, dw1, db1, dw2, db2 = emp(n, ch), emp(hidden, ch), emp(hidden), emp(ch, hidden), emp(ch)
+    scratch, ds = emp(nscratch), emp(n, ch)
+    dw1, db1, dw2, db2 = emp(hidden, ch), emp(hidden), emp(ch, hidden), emp(ch)
     err = lib.sres_fg_ca_bwd(                  # the gate is the stash's: no b2
         g.data_ptr(), c.data_ptr(), gate.data_ptr(), *(a.data_ptr() for a in ws[:3]),
-        partial.data_ptr(), work.data_ptr(), ds.data_ptr(), dw1.data_ptr(),
-        db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), n, h * w, hidden,
-        _CA_POOL_SPLIT, int(c.dtype == torch.bfloat16), c.device.index or 0,
-        _stream(c.device))
+        scratch.data_ptr(), ds.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), n, h * w, hidden, bf, dev, _stream(c.device))
     cuda.check(err, "fgroup_ca_bwd kernel")
     LAUNCHES["fgroup_ca_bwd"] += 1
     return ds, dw1, db1, dw2, db2

@@ -53,9 +53,6 @@ from sres_tpu_torch.ops.winograd import (at_apply, at_t_apply, bt_apply,
 LAUNCHES: Dict[str, int] = {"wino_conv": 0, "ca_skip": 0, "wino_conv_bwd": 0,
                             "ca_skip_bwd": 0, "wino_chain": 0}
 
-# spatial chunks per sample of the channel-attention backward's pooling pass
-_CA_POOL_SPLIT = 8
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -434,6 +431,24 @@ def _wino_conv_bwd_cuda(g, x, w, m, y, gate, ds, dprev):
     return out, du, db
 
 
+_SCRATCH: Dict[tuple, int] = {}
+
+
+def _scratch(query: Callable[..., int], nimg: int, hw: int, bf: int, dev: int) -> int:
+    """Floats of scratch a channel-attention backward kernel takes for this
+    shape (``query``: its library's ``*_scratch`` entry), asked once per
+    shape and device."""
+    key = (query.__name__, nimg, hw, bf, dev)
+    n = _SCRATCH.get(key)
+    if n is None:
+        from sres_tpu_torch.ops import cuda
+        n = query(nimg, hw, bf, dev)
+        if n < 0:
+            cuda.check(-n, f"{query.__name__}({nimg}, {hw})")
+        _SCRATCH[key] = n
+    return n
+
+
 def _ca_skip_bwd_cuda(da, c2, caw1, cab1, caw2, cab2):
     from sres_tpu_torch.ops import cuda
     lib = cuda.load()
@@ -444,16 +459,16 @@ def _ca_skip_bwd_cuda(da, c2, caw1, cab1, caw2, cab2):
     hidden, ws = _ca_weights(lib, c, c2.device, caw1, cab1, caw2, cab2)
     t, _, h, wd = c2.shape
     da, c2 = _channels_last(da), _channels_last(c2)
+    bf, dev = int(c2.dtype == torch.bfloat16), c2.device.index or 0
+    nscratch = _scratch(lib.sres_ca_skip_bwd_scratch, t, h * wd, bf, dev)
     emp = lambda *s: torch.empty(s, dtype=torch.float32, device=c2.device)
-    partial, work = emp(t, _CA_POOL_SPLIT, 2, c), emp(t, 4, c)
-    gate, ds = emp(t, c), emp(t, c)
+    scratch, gate, ds = emp(nscratch), emp(t, c), emp(t, c)
     dw1, db1, dw2, db2 = emp(hidden, c), emp(hidden), emp(c, hidden), emp(c)
     err = lib.sres_ca_skip_bwd(
         da.data_ptr(), c2.data_ptr(), *(a.data_ptr() for a in ws),
-        partial.data_ptr(), work.data_ptr(), gate.data_ptr(), ds.data_ptr(),
+        scratch.data_ptr(), gate.data_ptr(), ds.data_ptr(),
         dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-        t, h * wd, hidden, _CA_POOL_SPLIT, int(c2.dtype == torch.bfloat16),
-        c2.device.index or 0, _stream(c2.device))
+        t, h * wd, hidden, bf, dev, _stream(c2.device))
     cuda.check(err, "ca_skip_bwd kernel")
     LAUNCHES["ca_skip_bwd"] += 1
     return gate, ds, dw1, db1, dw2, db2

@@ -1,4 +1,4 @@
-"""A/B timing of the channel-attention forward kernels of two checkouts on one card.
+"""A/B timing of the channel-attention kernels of two checkouts on one card.
 
     python sres_tpu_torch/probes/ca_ab.py [--root DIR] [--label NAME]
 
@@ -9,7 +9,9 @@ device time, the Winograd trunk's ``ca_skip`` (q + r·gate(r)) at the
 flagship shape (72, 64, 48, 48) in bf16 and f32 and at (2, 64, 192, 192)
 in bf16, and the fused trunk's ``fgroup_ca`` (x + c·gate from the conv's
 per-tile sums, c in f32) at (72, 64, 48, 48) in bf16, serving and with the
-stash of c. Both are called through their Python wrappers, whose
+stash of c; and the backwards: ``ca_skip_bwd`` (da f32, c2 bf16) at (72,
+64, 48, 48) and (2, 64, 192, 192), ``fgroup_ca_bwd`` (g and c bf16) at
+(72, 64, 48, 48). All are called through their Python wrappers, whose
 signatures every checkout shares; a ``torch.cuda._sleep`` holds the stream
 while the host queues 20 calls, then CUDA events time them: two readings
 each, after 3 warm-up calls. Operands come from a fixed numpy seed, so two
@@ -74,13 +76,19 @@ def main() -> int:
     qb, rb = q.bfloat16(), r.bfloat16()
     ql, rl = (f32(*LARGE, dc=0.3).bfloat16().contiguous(memory_format=cl) for _ in range(2))
     part = f32(SHAPE[0], 18, 64, sc=40.0)
+    gate = f32(SHAPE[0], 64).sigmoid()
+    dal = f32(*LARGE).contiguous(memory_format=cl)
     n = q.numel()
     modes = {"ca_skip bf16": (lambda: twc.ca_skip(qb, rb, *ca), 3 * 2 * n),
              "ca_skip f32": (lambda: twc.ca_skip(q, r, *ca), 3 * 4 * n),
              "ca_skip bf16 192x192": (lambda: twc.ca_skip(ql, rl, *ca), 3 * 2 * ql.numel()),
              "fgroup_ca bf16": (lambda: fg.fgroup_ca(qb, r, part, *ca), (2 + 4 + 2) * n),
              "fgroup_ca bf16 stash": (lambda: fg.fgroup_ca(qb, r, part, *ca, stash_c=True),
-                                      (2 + 4 + 2 + 2) * n)}
+                                      (2 + 4 + 2 + 2) * n),
+             "ca_skip_bwd bf16": (lambda: twc.ca_skip_bwd(q, rb, *ca), (4 + 2) * n),
+             "ca_skip_bwd bf16 192x192": (lambda: twc.ca_skip_bwd(dal, rl, *ca),
+                                          (4 + 2) * ql.numel()),
+             "fgroup_ca_bwd bf16": (lambda: fg.fgroup_ca_bwd(qb, rb, gate, *ca), (2 + 2) * n)}
     out = {k: [ms(f) for _ in range(2)] for k, (f, _) in modes.items()}
     bound = {k: 1e3 * b / HBM_BYTES_S for k, (_, b) in modes.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

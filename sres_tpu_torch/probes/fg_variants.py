@@ -163,7 +163,8 @@ def main() -> int:
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
         (d / "fused_group.cu").write_text(edited(src, edits))
-        shutil.copy(cuda.SOURCE_DIR / "wino_common.cuh", d)
+        for h in ("ca_common.cuh", "wino_common.cuh"):
+            shutil.copy(cuda.SOURCE_DIR / h, d)
         procs[name] = subprocess.Popen(
             [cuda.nvcc_path(), *cuda.ARCH_FLAGS, *cuda.NVCC_FLAGS, "-shared", "-o",
              str(d / "lib.so"), str(d / "fused_group.cu")],

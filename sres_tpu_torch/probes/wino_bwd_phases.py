@@ -128,8 +128,8 @@ def main() -> int:
     out_dir = cuda.BUILD_DIR / "probe_wino_bwd"
     out_dir.mkdir(parents=True, exist_ok=True)
     base = (cuda.SOURCE_DIR / "winograd_bwd.cu").read_text()
-    base = base.replace('#include "wino_common.cuh"',
-                        f'#include "{cuda.SOURCE_DIR / "wino_common.cuh"}"')
+    for h in ("ca_common.cuh", "wino_common.cuh"):
+        base = base.replace(f'#include "{h}"', f'#include "{cuda.SOURCE_DIR / h}"')
     variants = {"phases": PHASES + ONLY_BF16, "no_push": PHASES + NO_PUSH + ONLY_BF16}
     nvcc = cuda.nvcc_path()
     procs = {}

@@ -179,8 +179,10 @@ def test_ca_skip_matches_twin(dev, case, hidden):
 @pytest.mark.cuda
 def test_channel_attention_is_one_kernel_launch(dev):
     """At the flagship's shape in bf16, ca_skip is one ca_cluster_kernel
-    launch and fgroup_ca one fg_ca_stream_kernel launch (the profiler's
-    device kernels of one call, operands already channels_last)."""
+    launch, fgroup_ca one fg_ca_stream_kernel launch, and the backwards
+    ca_skip_bwd and fgroup_ca_bwd one ca_skip_bwd_kernel and one
+    fg_ca_bwd_kernel launch (the profiler's device kernels of one call,
+    operands already channels_last)."""
     from sres_tpu_torch.ops import fused_group as fg
     rng = np.random.default_rng(12)
     cl = dict(memory_format=torch.channels_last)
@@ -188,8 +190,11 @@ def test_channel_attention_is_one_kernel_launch(dev):
     c = _t(rng, _CA_SHAPES["b72"], dev).contiguous(**cl)
     part = _t(rng, (72, 18, 64), dev)
     ca = _ca_weights(rng, dev, 32)
+    gate = _t(rng, (72, 64), dev).sigmoid()
     calls = {"ca_cluster_kernel": lambda: twc.ca_skip(q, r, *ca),
-             "fg_ca_stream_kernel": lambda: fg.fgroup_ca(q, c, part, *ca, stash_c=True)}
+             "fg_ca_stream_kernel": lambda: fg.fgroup_ca(q, c, part, *ca, stash_c=True),
+             "ca_skip_bwd_kernel": lambda: twc.ca_skip_bwd(c, r, *ca),
+             "fg_ca_bwd_kernel": lambda: fg.fgroup_ca_bwd(q, r, gate, *ca)}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, call in calls.items():
         call()
@@ -213,10 +218,16 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 
 def _check_many(name, k32, p32, kbf, pbf):
-    """Output by output: the f32 bound and the bf16 envelope."""
+    """Output by output: the f32 bound and the bf16 envelope. An output that
+    is zero in f32 (a channel-attention gradient whose hidden units are all
+    shut) must be zero in the f32 kernel, and in bf16 within twice the bf16
+    twin's distance from zero (the envelope in absolute terms)."""
     torch.cuda.synchronize()
     for i, (a, b, c, d) in enumerate(zip(k32, p32, kbf, pbf)):
         assert float((a - b).abs().max()) <= 3e-5 * float(b.abs().max()), (name, i)
+        if float(b.abs().max()) == 0.0:
+            assert float(c.abs().max()) <= 2 * float(d.abs().max()), (name, i)
+            continue
         assert _rel(c, b) <= 2 * _rel(d, b) + 1e-4, (name, i, _rel(c, b), _rel(d, b))
 
 
@@ -287,14 +298,28 @@ def test_wino_conv_bwd_is_deterministic(dev, dt):
 
 
 @pytest.mark.cuda
-def test_ca_skip_bwd_matches_twin(dev):
-    rng = np.random.default_rng(30)
-    da, c2 = _t(rng, (3, 64, 16, 16), dev), _t(rng, (3, 64, 16, 16), dev)
-    ca = [_t(rng, s, dev, 0.1) for s in ((32, 64), (32,), (64, 32), (64,))]
-    _check_many("ca_skip_bwd", twc.ca_skip_bwd(da, c2, *ca),
+@pytest.mark.parametrize("hidden", [1, 4, 32, 64])
+@pytest.mark.parametrize("case", list(_CA_SHAPES))
+def test_ca_skip_bwd_matches_twin(dev, case, hidden):
+    """The Winograd trunk's channel-attention backward (one cooperative
+    launch) against its twin with c2 in f32 and bf16, at the channel-
+    attention shapes and widths from 1 to the kernels' bound: the gate, ds
+    and the four weight gradients; one launch a call; the same bits on two
+    calls."""
+    shape = _CA_SHAPES[case]
+    rng = np.random.default_rng(30 + hidden)
+    da, c2 = _t(rng, shape, dev), _t(rng, shape, dev) + 0.3
+    ca = _ca_weights(rng, dev, hidden)
+    launches = twc.LAUNCHES["ca_skip_bwd"]
+    _check_many(f"ca_skip_bwd {case} {hidden}", twc.ca_skip_bwd(da, c2, *ca),
                 twc.ca_skip_bwd_plain(da, c2, *ca),
                 twc.ca_skip_bwd(da, c2.bfloat16(), *ca),
                 twc.ca_skip_bwd_plain(da, c2.bfloat16(), *ca))
+    assert twc.LAUNCHES["ca_skip_bwd"] == launches + 2
+    for cc in (c2, c2.bfloat16()):
+        first, second = twc.ca_skip_bwd(da, cc, *ca), twc.ca_skip_bwd(da, cc, *ca)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -671,12 +696,13 @@ def test_fgroup_conv_and_wgrad_are_deterministic(dev, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stash", [False, True])
-@pytest.mark.parametrize("hidden", [4, 32, 64])
+@pytest.mark.parametrize("hidden", [1, 4, 32, 64])
 @pytest.mark.parametrize("case", list(_CA_SHAPES))
 def test_fgroup_ca_and_ca_bwd_match_twin(dev, case, hidden, stash):
     """Kernels (b) and (d): gate + skip from conv partials (the gate, and
     the c stash when asked), the same bits on two calls, one launch a call;
-    and the channel-attention backward."""
+    and the channel-attention backward, one launch a call, the same bits on
+    two calls."""
     from sres_tpu_torch.ops import fused_group as fg
     shape = _CA_SHAPES[case]
     x, c, g, wk, b, gate, _ = _fg_operands(dev, shape, 53)
@@ -700,10 +726,16 @@ def test_fgroup_ca_and_ca_bwd_match_twin(dev, case, hidden, stash):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
     bwd = lambda fn, dt: fn(g.to(dt), c.to(dt), gate, *ca)
+    launches = fg.LAUNCHES["fgroup_ca_bwd"]
     _check_many("fgroup_ca_bwd", bwd(fg.fgroup_ca_bwd, torch.float32),
                 bwd(fg.fgroup_ca_bwd_plain, torch.float32),
                 bwd(fg.fgroup_ca_bwd, torch.bfloat16),
                 bwd(fg.fgroup_ca_bwd_plain, torch.bfloat16))
+    assert fg.LAUNCHES["fgroup_ca_bwd"] == launches + 2
+    for dt in (torch.float32, torch.bfloat16):
+        first, second = bwd(fg.fgroup_ca_bwd, dt), bwd(fg.fgroup_ca_bwd, dt)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
 
 @pytest.mark.cuda
