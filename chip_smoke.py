@@ -131,7 +131,24 @@ Phases, one line each (every line carries the card's name and power limit):
 24. the same model trained as phase 13: one step's loss and gradients
    against the plain twins, three Adam steps (16 window_attention and 16
    window_attention_bwd launches each; the loss must fall), ms/step,
-   tiles/s, peak memory, the composition, a profile.
+   tiles/s, peak memory, the composition, a profile;
+25. the port's launcher (``sres_tpu_torch.train.main``: config reader,
+   synthetic data pipeline, ModelTrainer, checkpoints, the loss CSV) on
+   RCAN-10-20-64 ``winograd: 4``, bf16, config/task/synthetic-tiles-48.yaml
+   (batch 36 of 48×48 LR tiles) over a 1920×1920 region of 10 timeslices,
+   under a temporary platform.root: (a) one epoch: the CSV's rows (finite),
+   both checkpoint slots, the kernels' launches (a train step's and an eval
+   batch's counts times the trainer's), the first step's metrics bit for
+   bit against build_train_step on the same padded batch and weights, the
+   trainer's wall a step against build_train_step alone on the epoch's
+   padded batches, the host's parts, validation time, peak memory and a
+   torch.profiler capture of one timeslice (device time, idle share, its
+   host-to-device copies); (b) the run resumed from its train checkpoint
+   for one more epoch; (c) one epoch with ``pipeline.grad_accum=2`` and one
+   with ``pipeline.steps_per_dispatch=2`` on 3 timeslices.
+
+Phase 9's profile of a step fails on a copy from the host to the card
+(the step's operands are on the card).
 
 Tolerances: f32 max|kernel − plain| ≤ 3e-5·max|plain| (group 1e-4, and
 1e-2 for a group's gradients when a ReLU gate flipped between the kernel
@@ -153,7 +170,7 @@ the host queues the calls).
 
 The last three lines are a JSON object describing every kernel of the path
 (``launches`` counted over the three steps of each train slice, phases 9,
-13, 17, 21 and 24, EDSR's adding to RCAN's ``wino_conv`` and
+13, 17, 21 and 24; ``trainer_launches`` over phase 25a's epoch, EDSR's adding to RCAN's ``wino_conv`` and
 ``wino_conv_bwd``; the window attention listed once per main path and
 direction: ``window_attention`` and ``window_attention_bwd`` at T = 64
 with phase 13's launches and phase 10's and 11's times,
@@ -335,9 +352,11 @@ def smooth_fields(rng: np.random.Generator, n: int, size: int,
     return out
 
 
-def profile_device(label, fn, top: int = 12) -> float:
+def profile_device(label, fn, top: int = 12, no_htod: bool = False) -> float:
     """Device time by kernel name for one call of ``fn`` (torch.profiler,
-    CUPTI); prints the table and returns the device-busy ms."""
+    CUPTI); prints the table, with the host-to-device copies apart, and
+    returns the device-busy ms. ``no_htod``: raise if ``fn`` copied from
+    the host to the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -351,8 +370,11 @@ def profile_device(label, fn, top: int = 12) -> float:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    say(label, device_ms_total=total,
+    htod = [dict(copy=k, ms=ms, calls=n) for k, ms, n in rows if k.startswith("Memcpy HtoD")]
+    say(label, device_ms_total=total, htod=htod,
         top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in rows[:top]])
+    if no_htod and htod:
+        raise CheckFailed(f"{label}: host-to-device copies inside the call: {htod}")
     return total
 
 
@@ -1023,8 +1045,10 @@ def phase_train(dev, seed):
         out[name] = med
         say(f"9 train timing {name}", windows_ms_per_step=ws, median_ms_per_step=med,
             tiles_per_s=BATCH / (med / 1e3))
+    # the step's operands are on the card: no copy from the host inside it
     busy = {name: profile_device(f"9 train profile {name}",
-                                 lambda: steps[name](batches[0], weight), top=14)
+                                 lambda: steps[name](batches[0], weight), top=14,
+                                 no_htod=True)
             for name in ("kernel", "direct")}
     say("9 train summary", kernel_ms_per_step=out["kernel"],
         direct_ms_per_step=out["direct"],
@@ -2342,6 +2366,211 @@ def phase_edsr_train(dev, seed):
     return total
 
 
+# ------------------------------------------- the trainer (phase 25)
+# python -m sres_tpu_torch.train's arguments: RCAN-10-20-64 with the
+# Winograd trunk on the synthetic task (config/task/synthetic-tiles-48.yaml:
+# 48×48 LR tiles, batch 36, lnorm, xyflip) over a 1920×1920 region; 10
+# timeslices, as the dataset's 8 leave int(0.1·8) = 0 to validation and test
+TRAINER_ARGS = ["--model", "rcan-10-20-64", "--task", "synthetic-tiles-48",
+                "--dataset", "synthetic", "--platform", "local", "--seed", "42",
+                "model.winograd=4", "dataset.image_size={y: 1920, x: 1920}",
+                "dataset.ntimes=10"]
+# kernel launches a train step and an eval batch at RCAN-10-20-64 (phase 9's
+# and phase 5's counts)
+_NCONV = MODEL_CFG["nlayers"] * (2 * MODEL_CFG["nblocks"] + 1) + 1
+_NCA = MODEL_CFG["nlayers"] * MODEL_CFG["nblocks"]
+TRAIN_STEP_LAUNCHES = {"wino_conv": _NCONV + 2 * _NCA, "ca_skip": _NCA,
+                       "wino_conv_bwd": _NCONV, "ca_skip_bwd": _NCA}
+EVAL_STEP_LAUNCHES = {"wino_conv": _NCONV, "ca_skip": _NCA, "wino_conv_bwd": 0,
+                      "ca_skip_bwd": 0}
+
+
+def _csv_rows(trainer):
+    import csv
+    with open(trainer.results_accum.result_file_path(), newline="") as f:
+        return [r for r in csv.reader(f, delimiter=",", quotechar="|")]
+
+
+def _check_rows(label, rows, n):
+    if len(rows) != n or not all(math.isfinite(float(x)) for r in rows for x in r[2:]):
+        raise CheckFailed(f"{label}: {len(rows)} loss CSV rows (want {n}), or a non-finite loss: "
+                          f"{rows}")
+
+
+def _host_share(t) -> dict:
+    """The trainer's host seconds by part, a step, and their share of the
+    train wall."""
+    parts = ("load", "assemble", "pad", "metrics_to_host", "to_device", "dispatch")
+    n = max(t["steps"], 1)
+    out = {f"{k}_ms_per_step": 1e3 * t[k] / n for k in parts}
+    # tile assembly, padding and the metrics read, of the train wall
+    out["host_share_pct"] = 100.0 * sum(t[k] for k in parts[1:4]) / max(t["train"], 1e-9)
+    return out
+
+
+def phase_trainer(dev):
+    """Phase 25: RCAN-10-20-64 ``winograd: 4`` trained through the port's
+    launcher (config reader → synthetic data pipeline → ModelTrainer →
+    checkpoints and the loss CSV), resumed, and run with each staging."""
+    import shutil
+    import tempfile
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.train import main as train_main
+    from sres_tpu_torch.data.inference_io import TSet
+    from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
+                                             make_step_config)
+    from sres_tpu_torch.trainer.trainer import ModelTrainer
+    root = Path(tempfile.mkdtemp(prefix="sres_trainer_"))
+    run_step, run_slice = ModelTrainer._run_train_step, ModelTrainer._train_timeslice
+    seen = dict(batches=[], first=None, slices=[], profile=None)
+
+    def capture_step(self, hr, weight):
+        # the padded batches and the first step's weights and metrics
+        if seen["first"] is None:
+            seen["first"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        seen["batches"].append((hr.copy(), weight.copy()))
+        met = run_step(self, hr, weight)
+        if len(seen["batches"]) == 1:
+            seen["first_metrics"] = {k: v.detach().clone() for k, v in met.items()}
+        return met
+
+    def timed_slice(self, train_times, itime):
+        # each timeslice's wall to the card's end, the steps in it; the
+        # third one under torch.profiler
+        steps0, t0 = self.timers["steps"], time.perf_counter()
+        if len(seen["slices"]) == 2:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                out = run_slice(self, train_times, itime)
+                torch.cuda.synchronize()
+            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            seen["profile"] = (rows, self.timers["steps"] - steps0)
+        else:
+            out = run_slice(self, train_times, itime)
+            torch.cuda.synchronize()
+        seen["slices"].append((time.perf_counter() - t0, self.timers["steps"] - steps0))
+        return out
+
+    def launch(tag, *extra):
+        from sres_tpu_torch.ops import winograd_conv as wc
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        ctl = train_main(TRAINER_ARGS + [f"platform.root={root / tag}"] + list(extra))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: wc.LAUNCHES[k] for k in TRAIN_STEP_LAUNCHES}
+        return ctl.trainer, wall, launches
+
+    def expect(t):
+        # zero-weight micro-batches of an accumulation tail run the step too
+        return {k: int(t.timers["steps"] + t.timers["pad_batches"]) * TRAIN_STEP_LAUNCHES[k]
+                + int(t.timers["eval_steps"]) * EVAL_STEP_LAUNCHES[k]
+                for k in TRAIN_STEP_LAUNCHES}
+
+    try:
+        # 25a: one epoch from the seeded weights
+        ModelTrainer._run_train_step, ModelTrainer._train_timeslice = capture_step, timed_slice
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            tr, wall, launches_a = launch("a", "task.nepochs=1")
+        finally:
+            ModelTrainer._run_train_step, ModelTrainer._train_timeslice = run_step, run_slice
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        t = dict(tr.timers)
+        rows = _csv_rows(tr)
+        ckpts = sorted(p.name.split(".", 1)[1] for p in (root / "a/results/checkpoints").iterdir())
+        nts = len(tr.data_timestamps[TSet.Train])
+        # the first timeslice builds the step's caches, the third is profiled
+        steady = seen["slices"][1:2] + seen["slices"][3:]
+        steady_ms = 1e3 * sum(w for w, _ in steady) / max(sum(n for _, n in steady), 1)
+        say("25a trainer epoch", wall_s=wall, train_s=t["train"], steps=t["steps"],
+            eval_steps=t["eval_steps"], train_timeslices=nts, rows=len(rows), checkpoints=ckpts,
+            trainer_ms_per_step=1e3 * t["train"] / t["steps"],
+            trainer_ms_per_step_steady=steady_ms,
+            validation_s=t["valid"], test_s=t["test"], peak_mem_gb=peak_gb,
+            launches=launches_a, expected=expect(tr), **_host_share(t))
+        _check_rows("25a", rows, nts + 2)
+        if not {"train.ckpt", "valid.ckpt"} <= set(ckpts):
+            raise CheckFailed(f"25a: checkpoint slots {ckpts}")
+        if launches_a != expect(tr) or min(launches_a.values()) <= 0:
+            raise CheckFailed(f"25a: launches {launches_a} != {expect(tr)}")
+        prof_rows, prof_steps = seen["profile"]
+        busy = sum(ms for _, ms, _ in prof_rows)
+        htod = [dict(copy=k, ms=ms, calls=n) for k, ms, n in prof_rows
+                if k.startswith("Memcpy HtoD")]
+        prof_rows.sort(key=lambda r: -r[1])
+        say("25a trainer profile, one timeslice", steps=prof_steps, device_ms_total=busy,
+            device_ms_per_step=busy / max(prof_steps, 1),
+            device_idle_pct=100.0 * (1 - busy / max(prof_steps, 1) / steady_ms), htod=htod,
+            top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in prof_rows[:10]])
+
+        # the first step against build_train_step on the same padded batch
+        # and weights, and build_train_step alone over the epoch's batches
+        model = build_model(MODEL_CFG, 1, 1, "bf16", device="cuda")
+        model.load_state_dict(seen["first"])
+        del tr
+        step = build_train_step(model, build_optimizer(model, TRAIN_TASK),
+                                make_step_config(TASK_CFG, MODEL_CFG))
+        staged = [(torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev))
+                  for h, w in seen["batches"]]
+        met = step(*staged[0])
+        first = seen["first_metrics"]
+        same = all(torch.equal(met[k], first[k]) for k in met)
+        say("25a first step vs build_train_step", trainer={k: float(v) for k, v in first.items()},
+            step={k: float(v) for k, v in met.items()}, bit_equal=same)
+        if not same:
+            raise CheckFailed("25a: the trainer's first step differs from build_train_step's")
+        for hw in staged[1:3]:
+            step(*hw)                                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for hw in staged:
+            step(*hw)
+        torch.cuda.synchronize()
+        alone_ms = 1e3 * (time.perf_counter() - t0) / len(staged)
+        say("25a trainer vs build_train_step alone", steps=len(staged),
+            step_alone_ms_per_step=alone_ms, trainer_ms_per_step_steady=steady_ms,
+            trainer_over_alone=steady_ms / alone_ms)
+        del model, step, staged, seen["batches"]
+
+        # 25b: resume from the train checkpoint for one more epoch
+        tr, wall, launches = launch("a", "task.nepochs=2")
+        rows_b = _csv_rows(tr)
+        say("25b trainer resumed", wall_s=wall, steps=tr.timers["steps"],
+            eval_steps=tr.timers["eval_steps"], rows=len(rows_b), first_new_row=rows_b[nts + 2],
+            launches=launches, expected=expect(tr))
+        # the checkpoint's timeslice again (reference semantics), validation,
+        # epoch 2, validation, test
+        _check_rows("25b", rows_b, (nts + 2) + (nts + 4))
+        if rows_b[nts + 2][:2] != ["train", f"{(nts - 1) / nts:.3f}"] or launches != expect(tr):
+            raise CheckFailed(f"25b: resumed at {rows_b[nts + 2]}, launches {launches}")
+        del tr
+
+        # 25c: the staging modes, K = 2, on 3 timeslices (2 trained)
+        for tag, knob in (("accum", "pipeline.grad_accum=2"),
+                          ("multi", "pipeline.steps_per_dispatch=2")):
+            tr, wall, launches = launch(tag, "task.nepochs=1", "dataset.ntimes=3", knob)
+            rows_c = _csv_rows(tr)
+            updates = {int(s["step"]) for s in tr.optimizer.state_dict()["state"].values()}
+            nsteps = int(tr.timers["steps"])
+            say(f"25c trainer {tag}", wall_s=wall, steps=nsteps, adam_updates=sorted(updates),
+                rows=len(rows_c), trainer_ms_per_step=1e3 * tr.timers["train"] / nsteps,
+                launches=launches, expected=expect(tr))
+            _check_rows(f"25c {tag}", rows_c, 2)
+            want_updates = {nsteps} if tag == "multi" else set(range(nsteps // 2, nsteps))
+            if not updates <= want_updates or launches != expect(tr):
+                raise CheckFailed(f"25c {tag}: {updates} updates for {nsteps} batches, "
+                                  f"launches {launches}")
+            del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches_a
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2398,6 +2627,7 @@ def main() -> int:
     w16 = phase_swin_train(dev, args.seed, SWIN16_CFG, "24 swinir-w16")
     launches["window_attention_t256"] = w16["window_attention"]
     launches["window_attention_bwd_t256"] = w16["window_attention_bwd"]
+    trainer_launches = phase_trainer(dev)
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -2427,7 +2657,8 @@ def main() -> int:
                     "window_attention_bwd_t256": dict(t=256, kernels=bwd)}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
-             launches=launches[k], serve_launches=serve_launches.get(k, 0), **kern[k],
+             launches=launches[k], serve_launches=serve_launches.get(k, 0),
+             trainer_launches=trainer_launches.get(k, 0), **kern[k],
              **cuda_kernels.get(k, {}))
         for k in where]}))
     print(f"card: {CARD}")

@@ -4,9 +4,9 @@ matmuls per image (counterpart of sres_tpu/ops/resize.py:45-140).
 The LR input of every eval request is the bicubic ×4 downsample of the HR
 tile, and the model is scored against the bicubic ×4 upsample of that LR
 input. Each spatial axis is resampled by a dense (out, in) weight matrix
-built once on the host; ``resize_matrix`` is the JAX module's numpy code,
-copied because that module imports ``jax.numpy`` at the top. Layout is NCHW
-(any leading dims; the last two are H, W).
+built once on the host and kept on the device; ``resize_matrix`` is the JAX
+module's numpy code, copied because that module imports ``jax.numpy`` at
+the top. Layout is NCHW (any leading dims; the last two are H, W).
 """
 from __future__ import annotations
 
@@ -84,12 +84,25 @@ def _out_size(in_size: int, scale: float) -> int:
     return int(math.floor(in_size * scale))
 
 
+@lru_cache(maxsize=256)
+def device_matrix(in_size: int, out_size: int, mode: str, scale: Optional[float],
+                  device: torch.device) -> torch.Tensor:
+    """``resize_matrix`` as an f32 tensor on ``device``, made once per (in
+    size, out size, mode, scale, device) and kept: a step then makes no
+    copy from pageable host memory, which would wait for the stream's
+    queued work (four a train step, two in LR synthesis and two in the
+    baseline). Made outside inference mode, so that a matrix first made
+    while serving also serves training."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_matrix(in_size, out_size, mode, scale)).to(device)
+
+
 def resize(x: torch.Tensor, out_hw: Tuple[int, int], mode: str = "bicubic",
            scale: Optional[float] = None) -> torch.Tensor:
     """Resize (..., H, W) ``x`` to ``out_hw``; computed and returned in f32."""
     h_in, w_in = x.shape[-2], x.shape[-1]
-    mh = torch.from_numpy(resize_matrix(h_in, out_hw[0], mode, scale)).to(x.device)
-    mw = torch.from_numpy(resize_matrix(w_in, out_hw[1], mode, scale)).to(x.device)
+    mh = device_matrix(h_in, out_hw[0], mode, scale, x.device)
+    mw = device_matrix(w_in, out_hw[1], mode, scale, x.device)
     return torch.matmul(torch.matmul(mh, x.float()), mw.T)
 
 

@@ -15,6 +15,7 @@ Weights are in torch layout, (Cout, Cin, 3, 3); transformed weights are
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List, Optional
 
 import numpy as np
@@ -52,6 +53,16 @@ _AT4 = np.array([[1, 1, 1, 1, 1, 0],
                  [0, 1, -1, 8, -8, 1]], np.float64)
 
 MATS = {2: (_BT2, _G2, _AT2), 4: (_BT4, _G4, _AT4)}
+
+
+@lru_cache(maxsize=None)
+def device_g(m: int, device: torch.device) -> torch.Tensor:
+    """G of F(m, 3) (float64) on ``device``, made once per (m, device) and
+    kept: a train step transforms weights and weight gradients hundreds of
+    times, and each copy from pageable host memory would wait for the
+    stream's queued work. Made outside inference mode."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(MATS[m][1]).to(device)
 
 
 def check_geometry(m: int, h: int, w: int) -> None:
@@ -115,7 +126,7 @@ def transform_weights(w: torch.Tensor, m: int) -> torch.Tensor:
     if m not in MATS:
         raise ValueError(f"Winograd tile m must be one of {sorted(MATS)}, got {m}")
     n = m + 2
-    g = torch.from_numpy(MATS[m][1]).to(w.device)
+    g = device_g(m, w.device)
     u = torch.einsum("tp,sq,...oipq->...tsio", g, g, w.double())
     return u.reshape(*w.shape[:-4], n * n, w.shape[-3], w.shape[-4]).float()
 
@@ -128,7 +139,7 @@ def untransform_weight_grad(du: torch.Tensor, m: int) -> torch.Tensor:
     if m not in MATS:
         raise ValueError(f"Winograd tile m must be one of {sorted(MATS)}, got {m}")
     n = m + 2
-    g = torch.from_numpy(MATS[m][1]).to(du.device)
+    g = device_g(m, du.device)
     d = du.double().reshape(*du.shape[:-3], n, n, *du.shape[-2:])
     return torch.einsum("tp,sq,...tsio->...oipq", g, g, d).float()
 

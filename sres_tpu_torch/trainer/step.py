@@ -1,6 +1,6 @@
-"""The train and eval steps and the optimizer (counterpart of
-sres_tpu/trainer/step.py:37-199, 308-402; reference
-sres/controller/dual_trainer.py:126, 296-323, 557-571).
+"""The train and eval steps, their multi-step and gradient-accumulation
+variants, and the optimizer (counterpart of sres_tpu/trainer/step.py:37-402;
+reference sres/controller/dual_trainer.py:126, 296-323, 557-571).
 
 HR batch (NCHW) → bicubic ×4 downsample to the LR input → model forward →
 masked loss against the HR target, plus the bicubic-upsample baseline loss;
@@ -12,7 +12,7 @@ cost and is not carried over.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, NamedTuple, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Tuple
 
 import torch
 
@@ -80,9 +80,7 @@ def build_eval_step(model: torch.nn.Module, sc: StepConfig) -> Callable:
     interp)): metrics holds 0-d f32 tensors ``mloss``, ``sloss`` and
     ``interp_sloss``; the four outputs are NCHW f32. Runs under
     ``torch.inference_mode`` with the model in eval mode."""
-    if sc.has_bn or sc.ntemporal:
-        raise NotImplementedError("BatchNorm and temporal-feature models are "
-                                  "not ported yet (ROADMAP Queue 1 item 8)")
+    _check_ported(sc)
 
     def eval_step(hr: torch.Tensor, weight: torch.Tensor
                   ) -> Tuple[Dict[str, torch.Tensor], Tuple[torch.Tensor, ...]]:
@@ -103,34 +101,115 @@ def _param_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _check_ported(sc: StepConfig) -> None:
+    if sc.has_bn or sc.ntemporal:
+        raise NotImplementedError("BatchNorm and temporal-feature models are "
+                                  "not ported yet (ROADMAP Queue 1 item 8)")
+
+
+def _metrics(mloss, sloss, lr, target, weight, sc: StepConfig
+             ) -> Dict[str, torch.Tensor]:
+    """The step's metrics, with the bicubic baseline's loss."""
+    with torch.no_grad():
+        interp_sloss, _ = sr_loss(_interp_baseline(lr, sc), target, weight,
+                                  sc.loss_fn)
+    return dict(mloss=mloss.detach(), sloss=sloss.detach(),
+                interp_sloss=interp_sloss)
+
+
+def _backward(model, hr, weight, sc: StepConfig):
+    """Forward and backward of one batch's masked loss into ``.grad``."""
+    lr, target = prepare_inputs(hr, sc)
+    sloss, mloss = sr_loss(model(lr), target, weight, sc.loss_fn)
+    mloss.backward()
+    return mloss, sloss, lr, target
+
+
 def build_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                      sc: StepConfig) -> Callable:
     """Returns train_step(hr_nchw, weight) -> metrics: one Adam step on the
     masked loss (``mloss``), run on the device of the model's parameters;
     metrics holds 0-d f32 tensors ``mloss``, ``sloss`` and ``interp_sloss``
-    (the JAX ``_train_step_core``, step.py:143-173). No multi-step or
-    gradient-accumulation variant yet (ROADMAP Queue 1 item 4)."""
-    if sc.has_bn or sc.ntemporal:
-        raise NotImplementedError("BatchNorm and temporal-feature models are "
-                                  "not ported yet (ROADMAP Queue 1 item 8)")
+    (the JAX ``_train_step_core``, step.py:143-173)."""
+    _check_ported(sc)
     dev = _param_device(model)
 
     def train_step(hr: torch.Tensor, weight: torch.Tensor
                    ) -> Dict[str, torch.Tensor]:
         model.train()
         hr, weight = hr.to(dev), weight.to(dev)
-        lr, target = prepare_inputs(hr, sc)
         optimizer.zero_grad(set_to_none=True)
-        sloss, mloss = sr_loss(model(lr), target, weight, sc.loss_fn)
-        mloss.backward()
+        mloss, sloss, lr, target = _backward(model, hr, weight, sc)
         optimizer.step()
-        with torch.no_grad():
-            interp_sloss, _ = sr_loss(_interp_baseline(lr, sc), target, weight,
-                                      sc.loss_fn)
-        return dict(mloss=mloss.detach(), sloss=sloss.detach(),
-                    interp_sloss=interp_sloss)
+        return _metrics(mloss, sloss, lr, target, weight, sc)
 
     return train_step
+
+
+def _stack_metrics(metrics: List[Dict[str, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def build_multi_train_step(model: torch.nn.Module,
+                           optimizer: torch.optim.Optimizer,
+                           sc: StepConfig) -> Callable:
+    """Returns multi_step(hr_stack, weight_stack) -> metrics: K optimizer
+    steps over a staged (K, B, C, H, W) stack and its (K, B) weights, one
+    ``build_train_step`` step each in order (the JAX ``lax.scan``,
+    step.py:202-236, becomes a Python loop); each metric comes back as a
+    (K,) tensor on the device."""
+    step = build_train_step(model, optimizer, sc)
+    dev = _param_device(model)
+
+    def multi_step(hr_stack: torch.Tensor, weight_stack: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+        hr_stack, weight_stack = hr_stack.to(dev), weight_stack.to(dev)
+        return _stack_metrics([step(hr, w) for hr, w in zip(hr_stack, weight_stack)])
+
+    return multi_step
+
+
+def build_accum_train_step(model: torch.nn.Module,
+                           optimizer: torch.optim.Optimizer,
+                           sc: StepConfig) -> Callable:
+    """Returns accum_step(hr_stack, weight_stack) -> metrics: ONE optimizer
+    update from K staged micro-batches (the JAX step.py:239-305). The
+    gradient applied is sum_k where(sw_k > 0, sw_k * g_k, 0) / max(sum_k
+    sw_k, 1e-12), sw_k the micro-batch's weight sum, all on the device
+    (no host read of sw): K identical micro-batches reproduce the single
+    step, and an all-padding micro-batch, whose RMSE gradient is NaN
+    (d sqrt at 0 is inf), contributes exactly nothing. Metrics per
+    micro-batch, (K,) tensors."""
+    _check_ported(sc)
+    dev = _param_device(model)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def accum_step(hr_stack: torch.Tensor, weight_stack: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+        model.train()
+        hr_stack, weight_stack = hr_stack.to(dev), weight_stack.to(dev)
+        gacc = [torch.zeros_like(p) for p in params]
+        swacc = torch.zeros((), device=dev)
+        metrics = []
+        for hr, weight in zip(hr_stack, weight_stack):
+            optimizer.zero_grad(set_to_none=True)
+            mloss, sloss, lr, target = _backward(model, hr, weight, sc)
+            sw = weight.sum()
+            with torch.no_grad():
+                for a, p in zip(gacc, params):
+                    if p.grad is not None:
+                        a.add_(torch.where(sw > 0, sw * p.grad, 0.0))
+                swacc += sw
+            metrics.append(_metrics(mloss, sloss, lr, target, weight, sc))
+        with torch.no_grad():
+            den = torch.clamp_min(swacc, 1e-12)
+            for a, p in zip(gacc, params):
+                p.grad = a.div_(den)
+        optimizer.step()
+        return _stack_metrics(metrics)
+
+    return accum_step
 
 
 def build_optimizer(model: torch.nn.Module, task: Mapping,

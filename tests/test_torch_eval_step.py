@@ -173,6 +173,25 @@ from sres_tpu_torch.ops.winograd_conv import wino_chain_fwd
 chain_out = tuple(wino_chain_fwd(torch.zeros(1, 4, 4, 4), torch.zeros(2, 4, 4, 3, 3),
                                  torch.zeros(2, 4), 2).shape)
 edsr_out = tuple(edsr_model(torch.zeros(1, 1, 8, 8)).shape)
+import tempfile
+import sres_tpu_torch.config, sres_tpu_torch.train, sres_tpu_torch.controller
+import sres_tpu_torch.controller.workflow, sres_tpu_torch.trainer.trainer
+import sres_tpu_torch.trainer.checkpoints, sres_tpu_torch.trainer.results
+import sres_tpu_torch.data.batch, sres_tpu_torch.data.input_pipeline
+import sres_tpu_torch.data.inference_io, sres_tpu_torch.data.norm
+import sres_tpu_torch.data.region_loader, sres_tpu_torch.data.synthetic
+import sres_tpu_torch.data.tiles, sres_tpu_torch.util.larray
+import sres_tpu_torch.util.logging, sres_tpu_torch.util.yamlite
+root = tempfile.mkdtemp()
+ctl = sres_tpu_torch.train.main([
+    "--model", "rcan-10-10-64", "--task", "synthetic-tiles-48", "--dataset", "synthetic",
+    "--platform", "local", "--seed", "1", "platform.root=" + root, "pipeline.device=cpu",
+    "pipeline.precision=f32", "task.nepochs=1", "task.batch_size=3", "model.nfeatures=4",
+    "model.nlayers=1", "model.nblocks=1", "dataset.ntimes=4", "dataset.image_size={y: 96, x: 96}",
+    "task.tile_size={x: 8, y: 8}", "task.ttsplit={train: 0.5, valid: 0.25, test: 0.25}"])
+csv_rows = [l.split(",")[0] for l in open(ctl.trainer.results_accum.result_file_path())]
+import shutil
+shutil.rmtree(root)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "yaml", "sres_tpu"))
 out = io.StringIO()
@@ -181,7 +200,8 @@ with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
 print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
                       swin_keys=len(swin_sd), swin_out=swin_out,
                       swin16_out=swin16_out, t256_out=t256_out,
-                      edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out)))
+                      edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out,
+                      csv_rows=csv_rows)))
 """
 
 
@@ -200,7 +220,9 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     of state_dict_from_jax (20 tensors for a 1-group, 1-RCAB RCAN; 25 for a
     1-group, 1-block SwinIR and 14 for a 1-ResBlock EDSR with ``winograd:
     2``, which then load strictly and run), of the conv chain, of a window-16
-    SwinIR and of window attention at T = 256 (its CPU twin)."""
+    SwinIR and of window attention at T = 256 (its CPU twin), and after
+    one tiny epoch on the CPU through the launcher (config reader, data
+    pipeline, trainer, checkpoints, loss CSV)."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
     assert fresh_process["swin_keys"] == 25
@@ -210,6 +232,7 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     assert fresh_process["edsr_keys"] == 14
     assert fresh_process["edsr_out"] == [1, 1, 32, 32]
     assert fresh_process["chain_out"] == [1, 4, 4, 4]
+    assert fresh_process["csv_rows"] == ["train", "train", "valid", "test"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):
