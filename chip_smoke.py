@@ -145,7 +145,35 @@ Phases, one line each (every line carries the card's name and power limit):
    torch.profiler capture of one timeslice (device time, idle share, its
    host-to-device copies); (b) the run resumed from its train checkpoint
    for one more epoch; (c) one epoch with ``pipeline.grad_accum=2`` and one
-   with ``pipeline.steps_per_dispatch=2`` on 3 timeslices.
+   with ``pipeline.steps_per_dispatch=2`` on 3 timeslices;
+26. region serving: the same model served from phase 25's best-validation
+   checkpoint through ``WorkflowController.inference`` and
+   ``inference_stream`` (``task.xyflip`` as the task sets it; the serving
+   paths turn it off). At 1920² HR (a 10×10 grid of 192-pixel tiles, 15 %
+   land): ``infer_region`` (every grid slot in one padded batch, the mosaic
+   assembled on the card), ``spatial`` (the active region as one 480×480 LR
+   sample), ``Tiles`` (the validation timestep's tiles), ``Image`` tiled
+   (``process_image``), ``seamless`` (margin 8: 52×52 LR tiles) and the
+   stream over the validation and test timeslices. Each: the NaN holes where
+   the region's are (the tiles with any NaN pixel in the tiled modes; the
+   NaN pixels themselves in ``spatial``), the model panel finite wherever
+   the target is, the target equal to the raw region (rtol 2e-4; the Tiles
+   mode: each tile's lnorm of it), the NetCDF files read back as written,
+   the launches (411 ``wino_conv`` and 200 ``ca_skip`` a forward), and the
+   model panel held against the same run on the plain twins and the direct
+   cuDNN trunk: in f32 the two within 1e-4·max, the kernels' bf16 within
+   the envelope of the twins' bf16 and of cuDNN's; ``infer_region`` after
+   ``update_model=True``
+   equals a fresh model built from the checkpoint, bit for bit, though the
+   seeded weights were served first; each slice of the stream equals
+   ``infer_region`` of it, bit for bit, and the stream's wall is taken with
+   one prep thread and with none, in turns, the loader's caches emptied
+   before each. At 3840² (400 slots): ``infer_region`` and ``spatial``, and
+   the first RCAB of the first group (rows 1 and 4) at one (1, 64, 960,
+   960) sample against its twin. One line a mode: seconds a region, HR
+   tiles/s (land-free tiles), device ms and idle share (torch.profiler, a
+   second call), peak memory, the trainer's host timers, launches a
+   region.
 
 Phase 9's profile of a step fails on a copy from the host to the card
 (the step's operands are on the card).
@@ -182,8 +210,9 @@ kernel's time at (2, 64, 192, 192); ``fgroup_ca`` naming its kernel, with
 the serving and stash modes' times and bounds; ``ca_skip_bwd`` and
 ``fgroup_ca_bwd`` naming their kernels, each mode's time and bound in
 ``modes`` and ``mode_bound_ms``; ``serve_launches`` over the three
-requests of phases 5, 12, 16, 20 and 23; the chain's over the one probe
-launch of phase 18), the card's
+requests of phases 5, 12, 16, 20 and 23; ``region_launches`` over phase 26's
+served calls, the comparisons' and the profiled repeats' left out; the
+chain's over the one probe launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
 """
@@ -197,6 +226,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2408,12 +2438,12 @@ def _host_share(t) -> dict:
     return out
 
 
-def phase_trainer(dev):
+def phase_trainer(dev, root):
     """Phase 25: RCAN-10-20-64 ``winograd: 4`` trained through the port's
     launcher (config reader → synthetic data pipeline → ModelTrainer →
-    checkpoints and the loss CSV), resumed, and run with each staging."""
-    import shutil
-    import tempfile
+    checkpoints and the loss CSV), resumed, and run with each staging, under
+    ``root`` (phase 26 serves the checkpoints of its first run, under
+    ``root / "a"``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2423,7 +2453,6 @@ def phase_trainer(dev):
     from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
                                              make_step_config)
     from sres_tpu_torch.trainer.trainer import ModelTrainer
-    root = Path(tempfile.mkdtemp(prefix="sres_trainer_"))
     run_step, run_slice = ModelTrainer._run_train_step, ModelTrainer._train_timeslice
     seen = dict(batches=[], first=None, slices=[], profile=None)
 
@@ -2471,104 +2500,457 @@ def phase_trainer(dev):
                 + int(t.timers["eval_steps"]) * EVAL_STEP_LAUNCHES[k]
                 for k in TRAIN_STEP_LAUNCHES}
 
+    # 25a: one epoch from the seeded weights
+    ModelTrainer._run_train_step, ModelTrainer._train_timeslice = capture_step, timed_slice
+    torch.cuda.reset_peak_memory_stats(dev)
     try:
-        # 25a: one epoch from the seeded weights
-        ModelTrainer._run_train_step, ModelTrainer._train_timeslice = capture_step, timed_slice
-        torch.cuda.reset_peak_memory_stats(dev)
-        try:
-            tr, wall, launches_a = launch("a", "task.nepochs=1")
-        finally:
-            ModelTrainer._run_train_step, ModelTrainer._train_timeslice = run_step, run_slice
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        t = dict(tr.timers)
-        rows = _csv_rows(tr)
-        ckpts = sorted(p.name.split(".", 1)[1] for p in (root / "a/results/checkpoints").iterdir())
-        nts = len(tr.data_timestamps[TSet.Train])
-        # the first timeslice builds the step's caches, the third is profiled
-        steady = seen["slices"][1:2] + seen["slices"][3:]
-        steady_ms = 1e3 * sum(w for w, _ in steady) / max(sum(n for _, n in steady), 1)
-        say("25a trainer epoch", wall_s=wall, train_s=t["train"], steps=t["steps"],
-            eval_steps=t["eval_steps"], train_timeslices=nts, rows=len(rows), checkpoints=ckpts,
-            trainer_ms_per_step=1e3 * t["train"] / t["steps"],
-            trainer_ms_per_step_steady=steady_ms,
-            validation_s=t["valid"], test_s=t["test"], peak_mem_gb=peak_gb,
-            launches=launches_a, expected=expect(tr), **_host_share(t))
-        _check_rows("25a", rows, nts + 2)
-        if not {"train.ckpt", "valid.ckpt"} <= set(ckpts):
-            raise CheckFailed(f"25a: checkpoint slots {ckpts}")
-        if launches_a != expect(tr) or min(launches_a.values()) <= 0:
-            raise CheckFailed(f"25a: launches {launches_a} != {expect(tr)}")
-        prof_rows, prof_steps = seen["profile"]
-        busy = sum(ms for _, ms, _ in prof_rows)
-        htod = [dict(copy=k, ms=ms, calls=n) for k, ms, n in prof_rows
-                if k.startswith("Memcpy HtoD")]
-        prof_rows.sort(key=lambda r: -r[1])
-        say("25a trainer profile, one timeslice", steps=prof_steps, device_ms_total=busy,
-            device_ms_per_step=busy / max(prof_steps, 1),
-            device_idle_pct=100.0 * (1 - busy / max(prof_steps, 1) / steady_ms), htod=htod,
-            top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in prof_rows[:10]])
-
-        # the first step against build_train_step on the same padded batch
-        # and weights, and build_train_step alone over the epoch's batches
-        model = build_model(MODEL_CFG, 1, 1, "bf16", device="cuda")
-        model.load_state_dict(seen["first"])
-        del tr
-        step = build_train_step(model, build_optimizer(model, TRAIN_TASK),
-                                make_step_config(TASK_CFG, MODEL_CFG))
-        staged = [(torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev))
-                  for h, w in seen["batches"]]
-        met = step(*staged[0])
-        first = seen["first_metrics"]
-        same = all(torch.equal(met[k], first[k]) for k in met)
-        say("25a first step vs build_train_step", trainer={k: float(v) for k, v in first.items()},
-            step={k: float(v) for k, v in met.items()}, bit_equal=same)
-        if not same:
-            raise CheckFailed("25a: the trainer's first step differs from build_train_step's")
-        for hw in staged[1:3]:
-            step(*hw)                                   # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for hw in staged:
-            step(*hw)
-        torch.cuda.synchronize()
-        alone_ms = 1e3 * (time.perf_counter() - t0) / len(staged)
-        say("25a trainer vs build_train_step alone", steps=len(staged),
-            step_alone_ms_per_step=alone_ms, trainer_ms_per_step_steady=steady_ms,
-            trainer_over_alone=steady_ms / alone_ms)
-        del model, step, staged, seen["batches"]
-
-        # 25b: resume from the train checkpoint for one more epoch
-        tr, wall, launches = launch("a", "task.nepochs=2")
-        rows_b = _csv_rows(tr)
-        say("25b trainer resumed", wall_s=wall, steps=tr.timers["steps"],
-            eval_steps=tr.timers["eval_steps"], rows=len(rows_b), first_new_row=rows_b[nts + 2],
-            launches=launches, expected=expect(tr))
-        # the checkpoint's timeslice again (reference semantics), validation,
-        # epoch 2, validation, test
-        _check_rows("25b", rows_b, (nts + 2) + (nts + 4))
-        if rows_b[nts + 2][:2] != ["train", f"{(nts - 1) / nts:.3f}"] or launches != expect(tr):
-            raise CheckFailed(f"25b: resumed at {rows_b[nts + 2]}, launches {launches}")
-        del tr
-
-        # 25c: the staging modes, K = 2, on 3 timeslices (2 trained)
-        for tag, knob in (("accum", "pipeline.grad_accum=2"),
-                          ("multi", "pipeline.steps_per_dispatch=2")):
-            tr, wall, launches = launch(tag, "task.nepochs=1", "dataset.ntimes=3", knob)
-            rows_c = _csv_rows(tr)
-            updates = {int(s["step"]) for s in tr.optimizer.state_dict()["state"].values()}
-            nsteps = int(tr.timers["steps"])
-            say(f"25c trainer {tag}", wall_s=wall, steps=nsteps, adam_updates=sorted(updates),
-                rows=len(rows_c), trainer_ms_per_step=1e3 * tr.timers["train"] / nsteps,
-                launches=launches, expected=expect(tr))
-            _check_rows(f"25c {tag}", rows_c, 2)
-            want_updates = {nsteps} if tag == "multi" else set(range(nsteps // 2, nsteps))
-            if not updates <= want_updates or launches != expect(tr):
-                raise CheckFailed(f"25c {tag}: {updates} updates for {nsteps} batches, "
-                                  f"launches {launches}")
-            del tr
+        tr, wall, launches_a = launch("a", "task.nepochs=1")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        ModelTrainer._run_train_step, ModelTrainer._train_timeslice = run_step, run_slice
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    t = dict(tr.timers)
+    rows = _csv_rows(tr)
+    ckpts = sorted(p.name.split(".", 1)[1] for p in (root / "a/results/checkpoints").iterdir())
+    nts = len(tr.data_timestamps[TSet.Train])
+    # the first timeslice builds the step's caches, the third is profiled
+    steady = seen["slices"][1:2] + seen["slices"][3:]
+    steady_ms = 1e3 * sum(w for w, _ in steady) / max(sum(n for _, n in steady), 1)
+    say("25a trainer epoch", wall_s=wall, train_s=t["train"], steps=t["steps"],
+        eval_steps=t["eval_steps"], train_timeslices=nts, rows=len(rows), checkpoints=ckpts,
+        trainer_ms_per_step=1e3 * t["train"] / t["steps"],
+        trainer_ms_per_step_steady=steady_ms,
+        validation_s=t["valid"], test_s=t["test"], peak_mem_gb=peak_gb,
+        launches=launches_a, expected=expect(tr), **_host_share(t))
+    _check_rows("25a", rows, nts + 2)
+    if not {"train.ckpt", "valid.ckpt"} <= set(ckpts):
+        raise CheckFailed(f"25a: checkpoint slots {ckpts}")
+    if launches_a != expect(tr) or min(launches_a.values()) <= 0:
+        raise CheckFailed(f"25a: launches {launches_a} != {expect(tr)}")
+    prof_rows, prof_steps = seen["profile"]
+    busy = sum(ms for _, ms, _ in prof_rows)
+    htod = [dict(copy=k, ms=ms, calls=n) for k, ms, n in prof_rows
+            if k.startswith("Memcpy HtoD")]
+    prof_rows.sort(key=lambda r: -r[1])
+    say("25a trainer profile, one timeslice", steps=prof_steps, device_ms_total=busy,
+        device_ms_per_step=busy / max(prof_steps, 1),
+        device_idle_pct=100.0 * (1 - busy / max(prof_steps, 1) / steady_ms), htod=htod,
+        top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in prof_rows[:10]])
+
+    # the first step against build_train_step on the same padded batch
+    # and weights, and build_train_step alone over the epoch's batches
+    model = build_model(MODEL_CFG, 1, 1, "bf16", device="cuda")
+    model.load_state_dict(seen["first"])
+    del tr
+    step = build_train_step(model, build_optimizer(model, TRAIN_TASK),
+                            make_step_config(TASK_CFG, MODEL_CFG))
+    staged = [(torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev))
+              for h, w in seen["batches"]]
+    met = step(*staged[0])
+    first = seen["first_metrics"]
+    same = all(torch.equal(met[k], first[k]) for k in met)
+    say("25a first step vs build_train_step", trainer={k: float(v) for k, v in first.items()},
+        step={k: float(v) for k, v in met.items()}, bit_equal=same)
+    if not same:
+        raise CheckFailed("25a: the trainer's first step differs from build_train_step's")
+    for hw in staged[1:3]:
+        step(*hw)                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for hw in staged:
+        step(*hw)
+    torch.cuda.synchronize()
+    alone_ms = 1e3 * (time.perf_counter() - t0) / len(staged)
+    say("25a trainer vs build_train_step alone", steps=len(staged),
+        step_alone_ms_per_step=alone_ms, trainer_ms_per_step_steady=steady_ms,
+        trainer_over_alone=steady_ms / alone_ms)
+    del model, step, staged, seen["batches"]
+
+    # 25b: resume from the train checkpoint for one more epoch
+    tr, wall, launches = launch("a", "task.nepochs=2")
+    rows_b = _csv_rows(tr)
+    say("25b trainer resumed", wall_s=wall, steps=tr.timers["steps"],
+        eval_steps=tr.timers["eval_steps"], rows=len(rows_b), first_new_row=rows_b[nts + 2],
+        launches=launches, expected=expect(tr))
+    # the checkpoint's timeslice again (reference semantics), validation,
+    # epoch 2, validation, test
+    _check_rows("25b", rows_b, (nts + 2) + (nts + 4))
+    if rows_b[nts + 2][:2] != ["train", f"{(nts - 1) / nts:.3f}"] or launches != expect(tr):
+        raise CheckFailed(f"25b: resumed at {rows_b[nts + 2]}, launches {launches}")
+    del tr
+
+    # 25c: the staging modes, K = 2, on 3 timeslices (2 trained)
+    for tag, knob in (("accum", "pipeline.grad_accum=2"),
+                      ("multi", "pipeline.steps_per_dispatch=2")):
+        tr, wall, launches = launch(tag, "task.nepochs=1", "dataset.ntimes=3", knob)
+        rows_c = _csv_rows(tr)
+        updates = {int(s["step"]) for s in tr.optimizer.state_dict()["state"].values()}
+        nsteps = int(tr.timers["steps"])
+        say(f"25c trainer {tag}", wall_s=wall, steps=nsteps, adam_updates=sorted(updates),
+            rows=len(rows_c), trainer_ms_per_step=1e3 * tr.timers["train"] / nsteps,
+            launches=launches, expected=expect(tr))
+        _check_rows(f"25c {tag}", rows_c, 2)
+        want_updates = {nsteps} if tag == "multi" else set(range(nsteps // 2, nsteps))
+        if not updates <= want_updates or launches != expect(tr):
+            raise CheckFailed(f"25c {tag}: {updates} updates for {nsteps} batches, "
+                              f"launches {launches}")
+        del tr
     return launches_a
+
+
+# ------------------------------------------------------------ 26 serving
+# the region modes' configuration: phase 25's run (TRAINER_ARGS) at a
+# region size, served from its platform.root
+REGION_GROUPS = dict(task="synthetic-tiles-48", dataset="synthetic", pipeline="sres",
+                     platform="local")
+REGION_SIZES = (1920, 3840)
+# HR tile (48×48 LR ×4) and the seamless halo in HR pixels (the default of
+# infer_region_seamless, which the controller calls)
+REGION_TILE, REGION_MARGIN = 192, 8
+
+
+def _region_overrides(size, root):
+    return {"model.winograd": 4, "dataset.image_size": {"y": size, "x": size},
+            "dataset.ntimes": 10, "platform.root": str(root)}
+
+
+def _raw_region(tr, ctime):
+    """The raw SST of the active region, its NaN mask, and the mask of the
+    tiles a tiled mode drops (any NaN in the tile)."""
+    region = tr.dataset.load_region_data(ctime).data
+    grid = tr.dataset.tile_grid
+    ishape = dict(c=region.shape[0], y=region.shape[1], x=region.shape[2])
+    roi = grid.get_active_region(image_shape=ishape)
+    gs = grid.get_grid_shape(image_shape=ishape)
+    raw = region[0, roi["y"][0]:roi["y"][1], roi["x"][0]:roi["x"][1]]
+    t = REGION_TILE
+    dropped = ~np.isfinite(raw.reshape(gs["y"], t, gs["x"], t)).all(axis=(1, 3))
+    return raw, ~np.isfinite(raw), np.repeat(np.repeat(dropped, t, 0), t, 1)
+
+
+def _check_image(label, panels, raw, holes):
+    """Holes where expected, the model finite wherever the target is, the
+    target equal to the raw region (rtol 2e-4, tests/test_workflow.py:
+    245-247)."""
+    tgt, mod = panels["target"].data, panels["model"].data
+    if tgt.shape != raw.shape or not np.array_equal(np.isnan(tgt), holes):
+        raise CheckFailed(f"{label}: target holes are not where the region's are")
+    if not np.array_equal(np.isfinite(mod), ~holes):
+        raise CheckFailed(f"{label}: the model panel is not finite exactly where the target is")
+    keep = ~holes
+    if not np.allclose(tgt[keep], raw[keep], rtol=2e-4, atol=2e-4):
+        raise CheckFailed(f"{label}: target does not round-trip to the raw region: max |d| "
+                          f"{float(np.abs(tgt[keep] - raw[keep]).max())}")
+
+
+def _check_netcdf(label, structure, timestep, written):
+    from sres_tpu_torch.data.inference_io import load_inference_results
+    back, _ = load_inference_results("SST", structure, timestep)
+    for k, v in written.items():
+        want = np.asarray(v.data, np.float32)
+        if not np.array_equal(back[k].data, want, equal_nan=True):
+            raise CheckFailed(f"{label}: NetCDF {k} does not read back as written: "
+                              f"{back[k].data.shape} {want.shape}")
+
+
+class _Serving:
+    """Swap another model into the trainer (the region step uses
+    ``trainer.model``, the tile modes ``trainer._eval_step``)."""
+
+    def __init__(self, tr, model):
+        from sres_tpu_torch.trainer.step import build_eval_step
+        self.tr, self.new = tr, (model, build_eval_step(model, tr.step_config))
+
+    def __enter__(self):
+        self.old = self.tr.model, self.tr._eval_step
+        self.tr.model, self.tr._eval_step = self.new
+
+    def __exit__(self, *exc):
+        self.tr.model, self.tr._eval_step = self.old
+
+
+def _twins_and_direct(tr, dev):
+    """The served weights on the plain twins (bf16 is the trainer's own
+    model with ``set_plain_twins``; f32) and on the direct cuDNN trunk (bf16,
+    f32)."""
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    sd = tr.model.state_dict()
+    out = {}
+    for name, cfg, prec in (("plain_f32", MODEL_CFG, "f32"),
+                            ("direct_f32", dict(MODEL_CFG, winograd=None), "f32"),
+                            ("direct_bf16", dict(MODEL_CFG, winograd=None), "bf16")):
+        m = build_model(cfg, 1, 1, prec, device=dev)
+        m.load_state_dict(sd)
+        set_plain_twins(m, True)
+        out[name] = m.eval()
+    return out
+
+
+def _panel_err(a, ref):
+    fin = np.isfinite(ref)
+    if not np.array_equal(fin, np.isfinite(a)):
+        raise CheckFailed("the holes differ between paths")
+    return float(np.abs(a[fin] - ref[fin]).max() / np.abs(ref[fin]).max())
+
+
+def _hold(label, tr, run, served, others):
+    """``served``'s model panel (the kernel path, bf16) against the same
+    run on the plain twins and the direct trunk: in f32 the twins and cuDNN
+    within GROUP_F32_TOL, and the kernels within the bf16 envelope of each,
+    2·rel_err(twins bf16, f32) + 1e-4 and 2·rel_err(cuDNN bf16, f32) +
+    1e-4 (errors over the finite pixels, against the twins in f32)."""
+    from sres_tpu_torch.models.layers import set_plain_twins
+    set_plain_twins(tr.model, True)
+    try:
+        got = {"plain_bf16": run(update_model=False)}
+    finally:
+        set_plain_twins(tr.model, False)
+    for name, m in others.items():
+        with _Serving(tr, m):
+            got[name] = run(update_model=False)
+    ref = got["plain_f32"]
+    e = {k: _panel_err(v, ref) for k, v in got.items() if k != "plain_f32"}
+    e["kernel_bf16"] = _panel_err(served, ref)
+    e["f32_direct_vs_plain"] = e.pop("direct_f32")
+    bounds = {k: 2 * e[k] + 1e-4 for k in ("plain_bf16", "direct_bf16")}
+    res = dict(case=label, bf16_kernel_rel=e["kernel_bf16"], bf16_plain_rel=e["plain_bf16"],
+               bf16_direct_rel=e["direct_bf16"], bound=bounds["plain_bf16"],
+               direct_bound=bounds["direct_bf16"],
+               f32_direct_vs_plain_rel=e["f32_direct_vs_plain"], f32_bound=GROUP_F32_TOL)
+    if not (e["kernel_bf16"] <= min(bounds.values())
+            and e["f32_direct_vs_plain"] <= GROUP_F32_TOL):
+        raise CheckFailed(f"{label} against twins and direct trunk: {res}")
+    return res
+
+
+def _device_busy(fn):
+    """One call of ``fn`` under torch.profiler: (device-busy ms, kernel
+    rows)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+def _served(tr, fn, ntiles, nregions, dev, warm=True, profiled=True):
+    """A mode served: with ``warm``, one call first (the shape's first-use
+    costs); then the timed call: its wall, launches, host parts (the
+    trainer's timers), peak memory; with ``profiled``, one more call under
+    torch.profiler for device time and idle share."""
+    import torch
+    from sres_tpu_torch.ops import winograd_conv as wc
+    t_mode = time.perf_counter()
+    if warm:
+        fn()
+    timers0 = dict(tr.timers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    wc.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: wc.LAUNCHES[k] for k in ("wino_conv", "ca_skip")}
+    host = {f"{k}_s": tr.timers[k] - timers0.get(k, 0.0) for k in tr.timers
+            if k.startswith("region_") or k in ("netcdf_write", "checkpoint_load")}
+    stats = dict(_t0=t_mode, seconds_per_region=wall / nregions, hr_tiles_per_s=ntiles / wall,
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                 eval_steps=int(tr.timers["eval_steps"] - timers0.get("eval_steps", 0)),
+                 launches_per_region={k: v / nregions for k, v in launches.items()}, host=host)
+    if profiled:
+        busy, rows = _device_busy(fn)
+        stats.update(device_ms_per_region=busy / nregions,
+                     device_idle_pct=100.0 * (1 - busy / 1e3 / wall),
+                     top=[dict(kernel=k[:60], ms=ms, calls=n) for k, ms, n in rows[:5]])
+    return out, wall, launches, stats
+
+
+def phase_region(dev, root):
+    """Phase 26: RCAN-10-20-64 ``winograd: 4`` served from phase 25's
+    best-validation checkpoint through ``WorkflowController.inference`` and
+    ``inference_stream``, in every region mode at 1920² HR and in two at
+    3840²."""
+    import torch
+    from sres_tpu_torch.config import ConfigContext
+    from sres_tpu_torch.controller import ResultStructure, TSet, WorkflowController
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.trainer.checkpoints import CheckpointManager, read_checkpoint
+    Image, Tiles = ResultStructure.Image, ResultStructure.Tiles
+    region_launches = {"wino_conv": 0, "ca_skip": 0}
+
+    for size in REGION_SIZES:
+        t_setup = time.perf_counter()
+        ctl = WorkflowController("sres", REGION_GROUPS, seed=42)
+        ctl.initialize("sres", "rcan-10-20-64", **REGION_GROUPS,
+                       **_region_overrides(size, root))
+        try:
+            tr = ctl.trainer
+            tr.init_data_timestamps()
+            cv, ct = tr.data_timestamps[TSet.Validation][0], tr.data_timestamps[TSet.Test][0]
+            raw, nan_mask, tile_mask = _raw_region(tr, cv)
+            ntiles = int((~tile_mask).sum()) // REGION_TILE ** 2
+            tag = f"26 region {size}"
+            first = size == REGION_SIZES[0]
+            # the seeded weights served first, so the U caches hold them
+            tr.infer_region(cv, update_model=False)
+            torch.cuda.synchronize()
+            say(f"{tag} setup", s=time.perf_counter() - t_setup)
+            others = {}
+
+            def mode(name, run, panels, check, ntiles=ntiles, nforward=1, **extra):
+                """``run(update_model, save)`` served as a user calls it,
+                checked, held against the twins and the direct trunk at
+                1920²; one line."""
+                out, _, launches, st = _served(tr, run, ntiles, 1, dev)
+                nforward = nforward or st["eval_steps"]
+                for k, v in launches.items():
+                    region_launches[k] += v
+                if launches != {k: nforward * EVAL_STEP_LAUNCHES[k] for k in launches}:
+                    raise CheckFailed(f"{tag} {name}: launches {launches}, {nforward} forwards")
+                check(panels(out))
+                if others:
+                    extra.update(_hold(f"{tag} {name}", tr,
+                                       lambda **kw: panels(run(save=False, **kw))["model"].data,
+                                       panels(out)["model"].data, others))
+                say(f"{tag} {name}", mode_s=time.perf_counter() - st.pop("_t0"), **st, **extra)
+                return out
+
+            def checked(structure, timestep, holes, raw_=raw):
+                def check(p):
+                    _check_image(f"{tag} {structure.value} {timestep}", p, raw_, holes)
+                    _check_netcdf(f"{tag} {structure.value} {timestep}", structure, timestep, p)
+                return check
+
+            # infer_region: one padded batch of every grid slot
+            out = mode("infer_region",
+                       lambda update_model=True, save=True: tr.infer_region(
+                           cv, update_model=update_model),
+                       lambda r: r["SST"],
+                       lambda p: _check_image(f"{tag} infer_region", p, raw, tile_mask),
+                       slots=(size // REGION_TILE) ** 2, tiles=ntiles)
+            # no stale U: a fresh model built from the checkpoint serves the same
+            fresh = build_model(MODEL_CFG, 1, 1, "bf16", seed=7, device=dev)
+            fresh.load_state_dict(read_checkpoint(
+                CheckpointManager.checkpoint_path(TSet.Validation))["model"])
+            with _Serving(tr, fresh):
+                again = tr.infer_region(cv)["SST"]["model"].data
+            del fresh
+            same = np.array_equal(again, out["SST"]["model"].data, equal_nan=True)
+            say(f"{tag} infer_region after update_model vs a fresh model", bit_equal=same)
+            if not same:
+                raise CheckFailed(f"{tag}: served after update_model differs from a fresh model")
+            if first:
+                others.update(_twins_and_direct(tr, dev))
+                # the direct-trunk and twin comparison of infer_region
+                extra = _hold(f"{tag} infer_region", tr,
+                              lambda **kw: tr.infer_region(cv, **kw)["SST"]["model"].data,
+                              out["SST"]["model"].data, others)
+                say(f"{tag} infer_region against twins and direct trunk", **extra)
+
+            mode("spatial",
+                 lambda **kw: ctl.inference(cv, Image, region_mode="spatial", **kw),
+                 lambda r: r[0]["SST"], checked(Image, cv, nan_mask),
+                 lr_shape=[1, 64, size // 4, size // 4])
+            if not first:
+                phase_region_sample(tr, dev, size)
+                continue
+
+            # Tiles: the validation timestep's tiles (eval batches of 36),
+            # each tile's target its lnorm'd raw values
+            want = tr.dataset.load_timeslice(cv).data[:, 0].astype(np.float64)
+            want = (want - want.mean(axis=(1, 2), keepdims=True)) / \
+                want.std(axis=(1, 2), keepdims=True)
+
+            def tiles_check(p):
+                if not (p["target"].shape == want.shape
+                        and np.allclose(p["target"].data, want, rtol=2e-4, atol=2e-4)
+                        and np.isfinite(p["model"].data).all()):
+                    raise CheckFailed(f"{tag} Tiles: target tiles are not the normalized region's")
+                _check_netcdf(f"{tag} Tiles", Tiles, 0, p)
+
+            mode("Tiles", lambda **kw: ctl.inference(0, Tiles, **kw), lambda r: r[0]["SST"],
+                 tiles_check, nforward=0)
+            # Image, tiled: process_image (eval batches, host assembly); as in
+            # JAX it serves the train list's timestep 0
+            raw0, _, tile0 = _raw_region(tr, tr.data_timestamps[TSet.Train][0])
+            mode("Image tiled", lambda **kw: ctl.inference(0, Image, **kw),
+                 lambda r: r[0]["SST"], checked(Image, 0, tile0, raw0),
+                 ntiles=int((~tile0).sum()) // REGION_TILE ** 2, nforward=0)
+            # seamless: haloed tiles (48 + 2·2 LR) in one eval batch
+            mode("seamless", lambda **kw: ctl.inference(cv, Image, region_mode="seamless", **kw),
+                 lambda r: r[0]["SST"], checked(Image, cv, tile_mask), margin=REGION_MARGIN)
+            others.clear()
+
+            # the stream over the validation and test timeslices, saved as
+            # NetCDF; each slice equals infer_region of it, bit for bit; its
+            # wall with one prep thread (prefetch 2) and with none, in turns,
+            # each after emptying the loader's caches so that every prep makes
+            # its fields anew; the first run profiled
+            alone = {c: tr.infer_region(c)["SST"] for c in (cv, ct)}
+            ntiles2 = ntiles + int((~_raw_region(tr, ct)[2]).sum()) // REGION_TILE ** 2
+            walls, lines = {}, []
+            loader = tr.dataset.srbatch.data_loader
+            for i, pf in enumerate((2, 0, 0, 2)):
+                loader._cache.clear()
+                out, wall, launches, st = _served(
+                    tr, lambda: list(ctl.inference_stream([cv, ct], prefetch=pf)), ntiles2, 2,
+                    dev, warm=False, profiled=i == 0)
+                for k, v in launches.items():
+                    region_launches[k] += v
+                if launches != {k: 2 * EVAL_STEP_LAUNCHES[k] for k in launches}:
+                    raise CheckFailed(f"{tag} stream: launches {launches}")
+                walls.setdefault(pf, []).append(wall)
+                lines.append(st)
+                for ts, images in out:
+                    _check_netcdf(f"{tag} stream", Image, ts, images["SST"])
+                    for k, v in images["SST"].items():
+                        if not np.array_equal(v.data, alone[ts][k].data, equal_nan=True):
+                            raise CheckFailed(f"{tag} stream: slice {ts} {k} differs "
+                                              "from infer_region")
+            st = lines[0]
+            say(f"{tag} infer_region_stream", mode_s=time.perf_counter() - st.pop("_t0"), **st,
+                slices=2, wall_prefetch2_s=walls[2], wall_no_thread_s=walls[0],
+                thread_over_no_thread=sum(walls[2]) / sum(walls[0]),
+                # the launch loop's host time (2 slices) in each run, in turns
+                dispatch_s_prefetch_2_0_0_2=[ln["host"]["region_dispatch_s"] for ln in lines])
+        finally:
+            ConfigContext.deactivate()
+            del ctl
+    return region_launches
+
+
+def phase_region_sample(tr, dev, size):
+    """Rows 1 and 4 at the largest whole-region sample: the first RCAB of
+    the served model's first group (two convs and the channel attention,
+    ``wino_group_fwd``) on (1, 64, size/4, size/4) against its twin."""
+    import torch
+    from sres_tpu_torch.models.wino_blocks import group_params
+    from sres_tpu_torch.ops import winograd_conv as wc
+    ps = group_params(tr.model.body[0])
+    w = torch.stack([ps[0], ps[2]])[None].detach()
+    b = torch.stack([ps[1], ps[3]])[None].detach()
+    ca = [p.detach().float().reshape(p.shape[:2] if p.dim() == 4 else p.shape)[None]
+          for p in ps[4:8]]
+    gen = torch.Generator(dev).manual_seed(26)
+    x = torch.randn((1, 64, size // 4, size // 4), generator=gen, device=dev)
+    with torch.no_grad():
+        res = {}
+        for dt in (torch.float32, torch.bfloat16):
+            xx = x.to(dt).contiguous(memory_format=torch.channels_last)
+            res[dt] = (wc.wino_group_fwd(xx, w, b, *ca, 4),
+                       wc.wino_group_fwd_plain(xx, w, b, *ca, 4))
+        torch.cuda.synchronize()
+    (k32, p32), (kbf, pbf) = res[torch.float32], res[torch.bfloat16]
+    say(f"26 region {size} rows 1 and 4 at one sample",
+        **check_pair(f"wino_group_fwd (1, 64, {size // 4}, {size // 4})", k32, p32, kbf, pbf,
+                     GROUP_F32_TOL))
 
 
 def main() -> int:
@@ -2627,7 +3009,12 @@ def main() -> int:
     w16 = phase_swin_train(dev, args.seed, SWIN16_CFG, "24 swinir-w16")
     launches["window_attention_t256"] = w16["window_attention"]
     launches["window_attention_bwd_t256"] = w16["window_attention_bwd"]
-    trainer_launches = phase_trainer(dev)
+    root = Path(tempfile.mkdtemp(prefix="sres_trainer_"))
+    try:
+        trainer_launches = phase_trainer(dev, root)
+        region_launches = phase_region(dev, root / "a")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -2658,7 +3045,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
              launches=launches[k], serve_launches=serve_launches.get(k, 0),
-             trainer_launches=trainer_launches.get(k, 0), **kern[k],
+             trainer_launches=trainer_launches.get(k, 0),
+             region_launches=region_launches.get(k, 0), **kern[k],
              **cuda_kernels.get(k, {}))
         for k in where]}))
     print(f"card: {CARD}")

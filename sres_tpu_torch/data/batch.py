@@ -83,6 +83,9 @@ class SRBatch:
     def load_timeslice(self, ctime: TimeType, **kwargs) -> Optional[LArray]:
         return self.data_loader.load_timeslice(ctime, **kwargs)
 
+    def load_region_data(self, ctime: TimeType, **kwargs) -> Optional[LArray]:
+        return self.data_loader.load_region_data(ctime, **kwargs)
+
     def load_batch(self, ctile: Dict[str, int], ctime: TimeType,
                    flip_index: Optional[int] = None) -> Optional[LArray]:
         if self.batch_domain == batchDomain.Time:
@@ -151,6 +154,9 @@ class BatchDataset:
 
     def load_timeslice(self, ctime: TimeType, **kwargs) -> Optional[LArray]:
         return self.srbatch.load_timeslice(ctime, **kwargs)
+
+    def load_region_data(self, ctime: TimeType, **kwargs) -> Optional[LArray]:
+        return self.srbatch.load_region_data(ctime, **kwargs)
 
     def get_dset_time_indices(self) -> List[TimeType]:
         return self.srbatch.get_dset_time_indices()

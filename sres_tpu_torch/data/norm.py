@@ -1,7 +1,7 @@
-"""Normalization: the six schemes + the per-tile stats sidecar (counterpart
-of sres_tpu/data/norm.py:1-150; reference
-sres/base/source/swot/raw.py:46-123,169-214). ``denorm`` and the per-pixel
-maps of whole-region inference wait for the inference slice.
+"""Normalization: the six schemes, the per-tile stats sidecar, ``denorm``
+and the per-pixel maps of whole-region inference (counterpart of
+sres_tpu/data/norm.py; reference sres/base/source/swot/raw.py:46-123,169-214,
+sres/controller/dual_trainer.py:67-77).
 
 Schemes (cfg().task.norm):
   lnorm  — per-tile, per-channel mean/std over (y,x); stats attached for denorm
@@ -13,7 +13,7 @@ Schemes (cfg().task.norm):
 
 Stats ride along as ``attrs['mean'|'std'|'max'|'min']`` arrays of shape
 (B, C, 1, 1) on the batch LArray, for the denormalization of inference
-results (with the inference slice). Deviation from the reference:
+results. Deviation from the reference:
 ``tscale`` slices the sidecar by the batch tile range like ``tnorm`` does —
 the reference broadcasts all-tile stats, which only works for full-timeslice
 batches.
@@ -149,3 +149,83 @@ def normalize_batch(
             raise ValueError(f"Unknown norm: {ntype}")
     stats = {k: np.concatenate(v, axis=1).astype(np.float32) for k, v in attrs.items()}
     return out, stats
+
+
+def denorm(normed: np.ndarray, norm_attrs: Dict[str, np.ndarray]) -> np.ndarray:
+    """Invert lnorm/lscale/tnorm/tscale via the attached batch stats
+    (reference: sres/controller/dual_trainer.py:67-77)."""
+    out = np.asarray(normed)
+    if "mean" in norm_attrs:
+        out = out * norm_attrs["std"] + norm_attrs["mean"]
+    if "max" in norm_attrs:
+        rng = norm_attrs["max"] - norm_attrs["min"]
+        out = out * rng + norm_attrs["min"]
+    return out
+
+
+def slice_stats(stats: Dict[str, np.ndarray], chan_idx) -> Dict[str, np.ndarray]:
+    """Channel-select (B, C, 1, 1) batch stats — denorm of target panels when
+    target_variables ⊂ input_variables (the model/interp/target tensors carry
+    only the target channels)."""
+    return {k: v[:, list(chan_idx)] for k, v in stats.items()}
+
+
+def tile_stats_maps(grid_valid_ids: np.ndarray, grid_shape: Dict[str, int],
+                    tile_hw: Dict[str, int], region_hw: Tuple[int, int],
+                    sidecar_stats: Dict[str, np.ndarray],
+                    varnames: List[str], ntype: str
+                    ) -> Dict[str, np.ndarray]:
+    """Per-PIXEL normalization maps for whole-region inference under the
+    sidecar schemes (tnorm/tscale): each tile's block of pixels gets its
+    per-(var, tile) sidecar stats; positions whose tile was NaN-dropped (no
+    sidecar row) get the variable's sidecar-global stats (they are NaN holes
+    restored after inference anyway). Returns attrs shaped (1, C, Y, X) in
+    denorm's convention ({mean,std} or {max,min}) so normalize = invert of
+    denorm applies pixel-wise.
+
+    Sidecar row k corresponds to the k-th VALID tile in raster order — the
+    same static-valid-tile-set assumption the loader's batch path makes
+    (reference swot/raw.py:216-233: the mask is static, so the valid set is
+    time-invariant)."""
+    gy, gx = grid_shape["y"], grid_shape["x"]
+    ty, tx = tile_hw["y"], tile_hw["x"]
+    ry, rx = region_hw
+    nchan = len(varnames)
+    row_of = {int(fid): k for k, fid in enumerate(grid_valid_ids)}
+    a_name, b_name = ("mean", "std") if ntype == "tnorm" else ("max", "min")
+    out = {a_name: np.zeros((1, nchan, ry, rx), np.float32),
+           b_name: np.ones((1, nchan, ry, rx), np.float32)}
+    for ic, vn in enumerate(varnames):
+        s = sidecar_stats[vn]           # (nvalid, 4): mean, var, max, min
+        gmean, gvar = s[:, 0].mean(), s[:, 1].mean()
+        gmax, gmin = s[:, 2].max(), s[:, 3].min()
+        for iy in range(gy):
+            for ix in range(gx):
+                k = row_of.get(iy * gx + ix)
+                if ntype == "tnorm":
+                    m = s[k, 0] if k is not None else gmean
+                    sd = np.sqrt(s[k, 1] if k is not None else gvar)
+                    vals = (m, sd)
+                else:
+                    mx = s[k, 2] if k is not None else gmax
+                    mn = s[k, 3] if k is not None else gmin
+                    vals = (mx, mn)
+                ys, xs = slice(iy * ty, min((iy + 1) * ty, ry)), \
+                    slice(ix * tx, min((ix + 1) * tx, rx))
+                out[a_name][0, ic, ys, xs] = vals[0]
+                out[b_name][0, ic, ys, xs] = vals[1]
+    # denorm convention: {mean, std} multiplies/adds; {max, min} scales range
+    if ntype == "tnorm":
+        return {"mean": out["mean"], "std": out["std"]}
+    return {"max": out["max"], "min": out["min"]}
+
+
+def normalize_with_attrs(raw: np.ndarray, attrs: Dict[str, np.ndarray]) -> np.ndarray:
+    """Forward normalization with denorm-convention attrs (exact inverse of
+    ``denorm``): works with scalar per-tile stats or per-pixel maps."""
+    out = np.asarray(raw, np.float32)
+    if "mean" in attrs:
+        out = (out - attrs["mean"]) / attrs["std"]
+    if "max" in attrs:
+        out = (out - attrs["min"]) / (attrs["max"] - attrs["min"])
+    return out

@@ -54,6 +54,11 @@ class RegionTileLoader:
         return len(self.get_dset_time_indices())
 
     # -- region → tiles ---------------------------------------------------------
+    def load_region_data(self, time_index: int, **kwargs) -> LArray:
+        """The raw (C, Y, X) region of a timestep, NaN holes included."""
+        raw = np.stack([self.load_region(v, time_index) for v in self.varnames], axis=0)
+        return LArray(raw, ["channels", "y", "x"], coords=dict(channels=list(self.varnames)))
+
     def get_tiles(self, raw_data: np.ndarray) -> LArray:
         """(C, Y, X) region → (ntiles, C, ty, tx) NaN-free tiles with their
         flat grid ids as the 'tiles' coord (reference: raw.py:216-233)."""

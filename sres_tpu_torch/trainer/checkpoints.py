@@ -90,10 +90,13 @@ def _write(path: str, head: bytes, data: torch.Tensor,
     os.replace(tmp, path)
 
 
-def read_checkpoint(path: str, tensors: bool = True) -> Dict[str, Any]:
+def read_checkpoint(path: str, tensors: bool = True,
+                    device: Optional[torch.device] = None) -> Dict[str, Any]:
     """A checkpoint file → {'epoch', 'itime', 'loss', 'interp_loss',
     'model': state dict, 'optimizer': state dict}; with ``tensors=False``
-    the metadata alone (no tensor is read)."""
+    the metadata alone (no tensor is read). The tensors' bytes are read in
+    one go into one buffer (pinned for a CUDA ``device``), which one copy
+    takes to ``device``; every tensor is a view of it."""
     with open(path, "rb") as f:
         if f.read(len(MAGIC)) != MAGIC:
             raise ValueError(f"{path} is not a checkpoint of this package")
@@ -102,12 +105,23 @@ def read_checkpoint(path: str, tensors: bool = True) -> Dict[str, Any]:
         table = header.pop("tensors")
         if not tensors:
             return {k: v for k, v in header.items() if k not in ("model", "optimizer")}
-        data = memoryview(f.read())
-    if sum(e[3] for e in table) != len(data):
-        raise ValueError(f"{path} is truncated")
-    loaded = [torch.frombuffer(bytearray(data[off:off + nb]), dtype=getattr(torch, dt))
-              .reshape(shape) if nb else torch.empty(shape, dtype=getattr(torch, dt))
-              for dt, shape, off, nb in table]
+        size = os.fstat(f.fileno()).st_size - f.tell()
+        if sum(e[3] for e in table) != size:
+            raise ValueError(f"{path} is truncated")
+        on_card = device is not None and torch.device(device).type == "cuda"
+        buf = torch.empty(size, dtype=torch.uint8, pin_memory=on_card)
+        if size and f.readinto(memoryview(buf.numpy())) != size:
+            raise ValueError(f"{path} is truncated")
+    if device is not None:
+        buf = buf.to(device, non_blocking=True)
+    loaded = []
+    for dt, shape, off, nb in table:
+        dtype = getattr(torch, dt)
+        t = buf[off:off + nb]
+        if off % dtype.itemsize:
+            t = t.clone()
+        loaded.append(t.view(dtype).reshape(shape) if nb else
+                      torch.empty(shape, dtype=dtype, device=buf.device))
     return _fill(header, loaded)
 
 
@@ -219,7 +233,8 @@ class CheckpointManager:
             if not os.path.exists(cand):
                 continue
             try:
-                blob = read_checkpoint(cand, tensors=update_model)
+                blob = read_checkpoint(cand, tensors=update_model,
+                                       device=self._device() if update_model else None)
                 if cand != path:
                     lgm().log(f"Primary checkpoint corrupt; restored from backup {cand}",
                               display=True)
@@ -236,6 +251,9 @@ class CheckpointManager:
             self.optimizer.load_state_dict(blob["optimizer"])
         lgm().log(f"Loaded model checkpoint from {path}", display=True)
         return out
+
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
 
     def clear_checkpoints(self) -> None:
         self.flush()

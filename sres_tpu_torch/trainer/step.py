@@ -70,7 +70,7 @@ def prepare_inputs(hr_nchw: torch.Tensor, sc: StepConfig
     return lr, target
 
 
-def _interp_baseline(lr: torch.Tensor, sc: StepConfig) -> torch.Tensor:
+def interp_baseline(lr: torch.Tensor, sc: StepConfig) -> torch.Tensor:
     """Bicubic-upsample baseline on the target channels."""
     return _select(upsample(lr, float(sc.scale), sc.up_mode), sc)
 
@@ -89,7 +89,7 @@ def build_eval_step(model: torch.nn.Module, sc: StepConfig) -> Callable:
             lr, target = prepare_inputs(hr, sc)
             out = model(lr)
             sloss, mloss = sr_loss(out, target, weight, sc.loss_fn)
-            interp = _interp_baseline(lr, sc)
+            interp = interp_baseline(lr, sc)
             interp_sloss, _ = sr_loss(interp, target, weight, sc.loss_fn)
             metrics = dict(mloss=mloss, sloss=sloss, interp_sloss=interp_sloss)
             return metrics, (lr, out, target, interp)
@@ -111,7 +111,7 @@ def _metrics(mloss, sloss, lr, target, weight, sc: StepConfig
              ) -> Dict[str, torch.Tensor]:
     """The step's metrics, with the bicubic baseline's loss."""
     with torch.no_grad():
-        interp_sloss, _ = sr_loss(_interp_baseline(lr, sc), target, weight,
+        interp_sloss, _ = sr_loss(interp_baseline(lr, sc), target, weight,
                                   sc.loss_fn)
     return dict(mloss=mloss.detach(), sloss=sloss.detach(),
                 interp_sloss=interp_sloss)

@@ -12,17 +12,29 @@ Ragged batches (NaN-filtered tile counts vary per timeslice) are padded to
 the batch size with 0-weight tiles. One process drives one device: the JAX
 trainer's mesh, its multi-host seeding and ``pipeline.shard_map`` have no
 counterpart here, and ``pipeline.profile``, ``packed_opt``, ``mesh``,
-``shard_map`` and ``memory_debug`` are accepted with no effect. Region
-inference, ``process_image``, image assembly and ``to_zarr`` wait for the
-inference slice (ROADMAP Queue 1 items 5-6).
+``shard_map`` and ``memory_debug`` are accepted with no effect; ``to_zarr``
+waits for ROADMAP Queue 1 item 5.
+
+Serving (counterpart of sres_tpu/trainer/trainer.py:592-1064):
+``process_image`` runs a timeslice's tile batches through the eval step and
+assembles them on the host; ``infer_region`` runs every grid slot of a
+timeslice as one padded batch on the card and assembles the mosaic there
+(``ops/assemble.py``), and ``infer_region_stream`` pipelines it over
+timeslices; ``infer_region_seamless`` runs haloed tiles, and
+``infer_region_spatial`` the whole active region as one image. Every mode
+denormalizes each target panel with its own variable's stats.
 
 ``timers`` holds the host's seconds by part (``load``: a timeslice's
 region → tiles, or the wait for its prefetch; ``assemble``: tile
 selection, normalization and flips; ``pad``; ``to_device``; ``dispatch``:
 queuing the steps; ``metrics_to_host``; ``train``: the timeslices' walls;
-``valid``, ``test``) and counts: ``steps``, the train batches run;
-``pad_batches``, the zero-weight micro-batches of accumulation tails;
-``eval_steps``.
+``valid``, ``test``; serving: ``region_prep``, the host prep of a region
+timeslice, on the prefetch thread when streamed; ``region_to_device``;
+``region_dispatch``, queuing the region step; ``region_to_host``, the wait
+for its images and their copy; ``checkpoint_load``, reading the
+best-validation checkpoint) and counts: ``steps``, the train batches
+run; ``pad_batches``, the zero-weight micro-batches of accumulation tails;
+``eval_steps``; ``regions``.
 """
 from __future__ import annotations
 
@@ -41,16 +53,23 @@ from sres_tpu_torch.config import ConfigContext, cfg, trainer_device
 from sres_tpu_torch.data.batch import BatchDataset
 from sres_tpu_torch.data.inference_io import TSet
 from sres_tpu_torch.data.input_pipeline import iter_pipelined
+from sres_tpu_torch.data.norm import (denorm, normalize_batch, normalize_with_attrs,
+                                      slice_stats, tile_stats_maps)
+from sres_tpu_torch.data.overlap import extract_overlapped_tiles
 from sres_tpu_torch.data.tiles import TileIterator, batchDomain
 from sres_tpu_torch.device import resolve_device
 from sres_tpu_torch.models import build_model
+from sres_tpu_torch.ops.assemble import assemble_tiles
+from sres_tpu_torch.ops.resize import downsample, upsample
+from sres_tpu_torch.parallel.spatial import infer_region_sharded
 from sres_tpu_torch.trainer.checkpoints import CheckpointManager
 from sres_tpu_torch.trainer.losses import psnr
 from sres_tpu_torch.trainer.results import ResultsAccumulator
 from sres_tpu_torch.trainer.step import (build_accum_train_step, build_eval_step,
                                          build_multi_train_step, build_optimizer,
-                                         build_train_step, lr_at_epoch,
-                                         make_step_config, set_learning_rate)
+                                         build_train_step, interp_baseline,
+                                         lr_at_epoch, make_step_config,
+                                         prepare_inputs, set_learning_rate)
 from sres_tpu_torch.util.larray import LArray
 from sres_tpu_torch.util.logging import lgm
 
@@ -129,6 +148,8 @@ class ModelTrainer:
         self.tile_index: int = -1
         self.current_losses: Dict[str, float] = {}
         self.timers: Dict[str, float] = defaultdict(float)
+        # the side stream of the region images' copies to the host
+        self._d2h_stream: Optional[torch.cuda.Stream] = None
         # merged eval result tensors per tset (reference: dual_trainer.py:136-139)
         self.input: Dict[TSet, Optional[np.ndarray]] = {}
         self.target: Dict[TSet, Optional[np.ndarray]] = {}
@@ -393,8 +414,7 @@ class ModelTrainer:
         update_model = kwargs.get("update_model", False)
         epoch = 0
         if update_model or update_checkpoint:
-            meta = self.checkpoint_manager.load_checkpoint(TSet.Validation,
-                                                           update_model=update_model)
+            meta = self._load_best(update_model)
             if meta is None:
                 lgm().log("Error loading checkpoint file, skipping evaluation.", display=True)
                 return {}, {}
@@ -475,3 +495,468 @@ class ModelTrainer:
         coords["y"] = np.arange(0, data.shape[2] * cscale, cscale)
         coords["x"] = np.arange(0, data.shape[3] * cscale, cscale)
         return LArray(data.astype(np.float32), ["tiles", "channels", "y", "x"], coords)
+
+    def get_dset_time_indices(self) -> List[TimeType]:
+        return self.dataset.get_dset_time_indices()
+
+    # ------------------------------------------------------------ process_image
+    def process_image(self, tset: TSet, itime: int, **kwargs
+                      ) -> Tuple[Dict[str, Dict[str, LArray]], Dict[str, Dict[str, float]]]:
+        """Full-timeslice inference + denorm + region re-assembly on the host
+        (reference: dual_trainer.py:396-447). As in JAX, ``itime`` indexes
+        the train timestamps whatever ``tset`` is. Unlike JAX
+        (sres_tpu/trainer/trainer.py:627-634), the target, model and
+        interpolated panels are denormalized with their own variables'
+        stats, so target ⊂ input gives the target's values."""
+        cfg().task["xyflip"] = False
+        update_model = kwargs.get("update_model", True)
+        meta = self._load_best(update_model)
+        if meta is None:
+            lgm().log("Error loading checkpoint file, skipping evaluation.", display=True)
+            return {}, {}
+        self.init_data_timestamps()
+        ctime = self.data_timestamps[TSet.Train][itime]
+        cvar = kwargs.get("var", None)
+        output_vars = [cvar] if cvar is not None else self.target_variables
+        tidx = list(self.step_config.target_idx)
+
+        batches, metrics_list = [], []
+        # loader_lock: serialize with a live infer_region_stream prefetch
+        # worker (shared stateful loader)
+        with self.loader_lock:
+            timeslice = self.dataset.load_timeslice(ctime)
+            tile_iter = self._tile_iterator(ctime)
+            for ctile in iter(tile_iter):
+                batch = self.dataset.get_batch_array(ctile, ctime)
+                if batch is None:
+                    break
+                hr, weight, nvalid = self._pad_batch(batch)
+                metrics, outputs = self._run_eval_step(hr, weight)
+                metrics_list.append(metrics)
+                lr, out, tar, interp = self._to_host(*[o[:nvalid] for o in outputs])
+                stats = _stats(batch.attrs)
+                tstats = slice_stats(stats, tidx)
+                batches.append(dict(input=denorm(lr, stats), target=denorm(tar, tstats),
+                                    interpolated=denorm(interp, tstats),
+                                    model=denorm(out, tstats)))
+
+        m = self._metrics_to_host(metrics_list)
+        images, losses = {}, {}
+        tile_ids = np.asarray(timeslice.coords["tiles"])
+        grid_shape = timeslice.attrs["grid_shape"]
+        for vname in output_vars:
+            images[vname] = self.assemble_images(
+                batches, self.target_variables.index(vname), tile_ids, grid_shape,
+                input_ivar=self.input_variables.index(vname))
+            losses[vname] = dict(model=float(np.mean(m["sloss"])),
+                                 interpolated=float(np.mean(m["interp_sloss"])))
+        return images, losses
+
+    def assemble_images(self, batches: List[Dict[str, np.ndarray]], ivar: int,
+                        tile_ids: np.ndarray, grid_shape: Dict[str, int],
+                        input_ivar: Optional[int] = None) -> Dict[str, LArray]:
+        """tile-id → (row, col) mosaic with NaN fill for dropped tiles
+        (reference: dual_trainer.py:449-480). ``input_ivar`` selects the
+        'input' panel's channel when target ⊂ input leaves the input with
+        more channels than the target-shaped panels."""
+        assembled: Dict[str, LArray] = {}
+        itypes = list(batches[0].keys()) if batches else []
+        for image_type in itypes:
+            civ = input_ivar if (image_type == "input" and input_ivar is not None) else ivar
+            tidx = 0
+            block_grid: Optional[List[List[np.ndarray]]] = None
+            for b in batches:
+                arr = b[image_type][:, civ]
+                tile_shape = list(arr.shape[-2:])
+                if block_grid is None:
+                    empty = np.full(tile_shape, np.nan, np.float32)
+                    block_grid = [[empty] * grid_shape["x"] for _ in range(grid_shape["y"])]
+                for i in range(arr.shape[0]):
+                    tid = int(tile_ids[tidx])
+                    ty, tx = tid // grid_shape["x"], tid % grid_shape["x"]
+                    block_grid[ty][tx] = arr[i]
+                    tidx += 1
+            image = np.block(block_grid)
+            coords = {cn: np.arange(0.0, 100.0, 100.0 / image.shape[ic])
+                      for ic, cn in enumerate(("y", "x"))}
+            assembled[image_type] = LArray(image, ["y", "x"], coords)
+        return assembled
+
+    # ----------------------------------------------------- region inference
+    def _prepare_region_inputs(self, ctime: TimeType):
+        """Host prep of one region timeslice: load, pad to every slot of the
+        grid, and the denorm scale and offset (x·scale + offset) of each slot
+        and input channel; on the card's path the arrays come back in pinned
+        memory; first, the seconds it took. Numpy only, so it may run on a
+        prefetch thread (infer_region_stream); holds ``loader_lock`` for the
+        stateful load and select."""
+        t0 = time.perf_counter()
+        with self.loader_lock:
+            timeslice = self.dataset.load_timeslice(ctime)
+            grid_shape = dict(timeslice.attrs["grid_shape"])
+            nslots = grid_shape["x"] * grid_shape["y"]
+            loader = self.dataset.srbatch.data_loader
+            batch = loader.select_batch((0, timeslice.shape[0]))
+        nch = len(self.input_variables)
+        tile_hw = timeslice.shape[2:]
+        hr = np.zeros((nslots, nch) + tuple(tile_hw), np.float32)
+        weight = np.zeros((nslots,), np.float32)
+        tile_ids = np.zeros((nslots,), np.int64)
+        scale = np.ones((nslots, nch, 1, 1), np.float32)
+        offset = np.zeros((nslots, nch, 1, 1), np.float32)
+        if batch is not None:
+            ntiles = batch.shape[0]
+            hr[:ntiles] = batch.data
+            weight[:ntiles] = 1.0
+            tile_ids[:ntiles] = np.asarray(batch.coords["tiles"], np.int64)
+            if "mean" in batch.attrs:
+                scale[:ntiles] = batch.attrs["std"]
+                offset[:ntiles] = batch.attrs["mean"]
+            elif "max" in batch.attrs:
+                scale[:ntiles] = batch.attrs["max"] - batch.attrs["min"]
+                offset[:ntiles] = batch.attrs["min"]
+        arrays = [torch.from_numpy(a) for a in (hr, weight, tile_ids, scale, offset)]
+        if self.device.type == "cuda":
+            arrays = [a.pin_memory() for a in arrays]
+        # the seconds go back with the arrays: a prep thread does not write
+        # the timers the calling thread reads
+        return (time.perf_counter() - t0, grid_shape, *arrays)
+
+    def _region_dispatch(self, prep_s: float, grid_shape: Dict[str, int],
+                         *arrays: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The region step, queued on the device: the padded batch of every
+        grid slot → LR synthesis, forward, bicubic baseline, x·scale +
+        offset, and each channel's tiles scattered into the region mosaic
+        (``assemble_tiles``). Returns {panel: (C, Y, X)} on the device.
+
+        Nothing is built per grid shape: the forward takes any batch, and
+        the resize matrices are kept per size (``ops/resize.py``). The
+        target, model and interpolated panels carry the target channels,
+        each denormalized with its own variable's stats (JAX's region step
+        broadcasts every input channel's stats over them,
+        sres_tpu/trainer/trainer.py:737-740)."""
+        self.timers["region_prep"] += prep_s
+        t0 = time.perf_counter()
+        hr, weight, ids, scale, offset = [a.to(self.device, non_blocking=True)
+                                          for a in arrays]
+        t1 = time.perf_counter()
+        sc = self.step_config
+        tidx = list(sc.target_idx)
+        tscale, toffset = scale[:, tidx], offset[:, tidx]
+        self.model.eval()
+        with torch.inference_mode():
+            lr, target = prepare_inputs(hr, sc)
+            out = self.model(lr)
+            interp = interp_baseline(lr, sc)
+            panels = dict(target=target * tscale + toffset, model=out * tscale + toffset,
+                          interpolated=interp * tscale + toffset, input=lr * scale + offset)
+            images = {name: torch.stack([assemble_tiles(a[:, c], ids, grid_shape, weight)
+                                         for c in range(a.shape[1])])
+                      for name, a in panels.items()}
+        self.timers["region_to_device"] += t1 - t0
+        self.timers["region_dispatch"] += time.perf_counter() - t1
+        return images
+
+    def _region_fetch(self, images: Dict[str, torch.Tensor]):
+        """Start the one device-to-host copy of a region's images: on the
+        card, into a pinned buffer on a side stream that waits for the
+        images (so the next region's work may go on meanwhile)."""
+        names = list(images)
+        shapes = [tuple(images[k].shape) for k in names]
+        flat = torch.cat([images[k].reshape(-1) for k in names])
+        if flat.device.type != "cuda":
+            return names, shapes, flat, None, None
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        side = self._copy_stream()
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            host.copy_(flat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        return names, shapes, host, done, flat
+
+    def _copy_stream(self) -> "torch.cuda.Stream":
+        if self._d2h_stream is None:
+            self._d2h_stream = torch.cuda.Stream(self.device)
+        return self._d2h_stream
+
+    def _region_result(self, fetch) -> Dict[str, Dict[str, LArray]]:
+        """Wait for a region's copy to the host and wrap it: per target
+        variable, each panel's channel of that variable ('input' the
+        variable's input channel)."""
+        names, shapes, host, done, _ = fetch
+        t0 = time.perf_counter()
+        if done is not None:
+            done.synchronize()
+        data = host.numpy()
+        self.timers["region_to_host"] += time.perf_counter() - t0
+        self.timers["regions"] += 1
+        panels, at = {}, 0
+        for k, s in zip(names, shapes):
+            n = int(np.prod(s))
+            panels[k] = data[at:at + n].reshape(s)
+            at += n
+        result: Dict[str, Dict[str, LArray]] = {}
+        for ivar, vname in enumerate(self.target_variables):
+            iin = self.input_variables.index(vname)
+            result[vname] = {k: LArray(v[iin if k == "input" else ivar], ["y", "x"])
+                             for k, v in panels.items()}
+        return result
+
+    def _load_best(self, update_model: bool) -> Optional[Dict[str, Any]]:
+        """The best-validation checkpoint's metadata (its weights loaded in
+        place with ``update_model``), timed as ``checkpoint_load``."""
+        t0 = time.perf_counter()
+        meta = self.checkpoint_manager.load_checkpoint(TSet.Validation,
+                                                       update_model=update_model)
+        self.timers["checkpoint_load"] += time.perf_counter() - t0
+        return meta
+
+    @staticmethod
+    def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+        """Device tensors → f32 numpy arrays by one copy (from the card into
+        pinned memory)."""
+        host = flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        if flat.is_cuda:
+            host = torch.empty(flat.shape, pin_memory=True)
+            host.copy_(flat)
+        data, out, at = host.numpy(), [], 0
+        for t in tensors:
+            out.append(data[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+        return out
+
+    def _maybe_update_model(self, kwargs: Dict[str, Any]) -> None:
+        if kwargs.get("update_model", False):
+            self._load_best(True)
+
+    def infer_region(self, ctime: TimeType, **kwargs) -> Dict[str, Dict[str, LArray]]:
+        """Full-region tiled inference with assembly on the device: every tile
+        of the timeslice runs through the model in ONE batch padded to the
+        grid's slot count, results are denormalized and scattered into the
+        region mosaic on the device, and only the four finished images per
+        variable cross to the host (BASELINE.json config #5)."""
+        if self.domain != batchDomain.Tiles:
+            raise NotImplementedError(
+                "infer_region requires a tiles-domain task (region datasets); "
+                "time-domain tasks cover a single tile grid — use evaluate()")
+        self._maybe_update_model(kwargs)
+        prep = self._prepare_region_inputs(ctime)
+        return self._region_result(self._region_fetch(self._region_dispatch(*prep)))
+
+    def infer_region_stream(self, ctimes, prefetch: int = 2,
+                            overlap_fetch: bool = False, **kwargs):
+        """Pipelined multi-timeslice region inference: yields ``(ctime,
+        result)`` like repeated :meth:`infer_region` calls, but
+        - the host prep of slices t+1..t+prefetch runs on one worker thread
+          while the device works on slice t; ``prefetch=0`` preps each
+          slice on the calling thread instead (no thread: every kernel
+          launch takes the interpreter lock back, so Python work on another
+          thread slows the launch loop);
+        - with ``overlap_fetch=True``, slice t+1 is queued before slice t's
+          images are waited for; their copy to the host runs on a side
+          stream meanwhile, and both slices' images are on the card at
+          once."""
+        from collections import deque
+
+        if self.domain != batchDomain.Tiles:
+            raise NotImplementedError(
+                "infer_region_stream requires a tiles-domain task (region "
+                "datasets); time-domain tasks cover a single tile grid")
+        self._maybe_update_model(kwargs)
+        prefetch = max(0, int(prefetch))
+        ctimes = list(ctimes)
+        pool = ThreadPoolExecutor(1, thread_name_prefix="region-prep") if prefetch else None
+
+        def submit(ct):
+            if pool is None:
+                return ct, None
+            return ct, pool.submit(self._prepare_region_inputs, ct)
+
+        try:
+            # one worker: the loader's prep is stateful (load_timeslice sets
+            # the current slice before select_batch), so preps serialize
+            preps = deque(submit(ct) for ct in ctimes[:max(prefetch, 1)])
+            nxt = len(preps)
+            pending = None          # (ctime, fetch) whose images are not read yet
+            while preps:
+                ctime, fut = preps.popleft()
+                prep = self._prepare_region_inputs(ctime) if fut is None else fut.result()
+                fetch = self._region_fetch(self._region_dispatch(*prep))
+                if nxt < len(ctimes):
+                    preps.append(submit(ctimes[nxt]))
+                    nxt += 1
+                if not overlap_fetch:
+                    yield ctime, self._region_result(fetch)
+                    continue
+                if pending is not None:
+                    yield pending[0], self._region_result(pending[1])
+                pending = (ctime, fetch)
+            if pending is not None:
+                yield pending[0], self._region_result(pending[1])
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+
+    # --------------------------------------------- seam-free overlapped inference
+    def infer_region_seamless(self, ctime: TimeType, margin: int = 8, **kwargs
+                              ) -> Dict[str, Dict[str, LArray]]:
+        """Seam-free full-region inference: tiles are cut with a reflected
+        halo of ``margin`` HR pixels so the network sees context across
+        tile borders; after SR the halos are cropped and only the centers
+        are assembled (data/overlap.py). ``margin`` must be a multiple of
+        the scale. All six norm schemes; target ⊂ input is handled by
+        channel-slicing the denorm stats. On the Winograd trunks the LR
+        tile (tile + 2·margin/scale) must be a multiple of m: the model
+        raises otherwise (48 + 4 at margin 8 is; 48 + 2 at margin 4 is
+        not)."""
+        assert margin % self.scale_factor == 0, \
+            f"margin {margin} must be a multiple of the scale {self.scale_factor}"
+        ntype = cfg().task.norm
+        if self.domain != batchDomain.Tiles:
+            raise NotImplementedError("seamless inference requires a tiles-domain task")
+        self._maybe_update_model(kwargs)
+
+        # loader_lock: region read + lazy sidecar compute serialize with a
+        # live infer_region_stream prefetch worker (shared loader/sidecar)
+        with self.loader_lock:
+            region = self.dataset.load_region_data(ctime)       # (C, Y, X) raw
+            grid = self.dataset.tile_grid
+            ishape = dict(c=region.shape[0], y=region.shape[1], x=region.shape[2])
+            gs = grid.get_grid_shape(image_shape=ishape)
+            roi = grid.get_active_region(image_shape=ishape)
+            active = region.data[:, roi["y"][0]:roi["y"][1], roi["x"][0]:roi["x"][1]]
+            ts_hr = grid.get_full_tile_size()
+            tiles, ids = extract_overlapped_tiles(active, ts_hr, gs, margin)
+            if tiles.shape[0] == 0:
+                return {}
+            sidecar_stats = global_stats = None
+            if ntype in ("tnorm", "tscale", "gnorm", "gscale"):
+                loader = self.dataset.srbatch.data_loader
+                if ntype in ("tnorm", "tscale"):
+                    sidecar_stats = loader.sidecar.get(loader._timeslice_iter)
+                    nrows = next(iter(sidecar_stats.values())).shape[0]
+                    assert tiles.shape[0] == nrows, \
+                        (f"region valid-tile count {tiles.shape[0]} != sidecar "
+                         f"rows {nrows}: the NaN mask is not static")
+                else:
+                    global_stats = loader.sidecar.global_stats(loader._timeslice_iter)
+        normed, stats = normalize_batch(tiles, ntype, (0, tiles.shape[0]),
+                                        sidecar_stats, global_stats,
+                                        list(self.input_variables))
+
+        n = normed.shape[0]
+        _, outputs = self._run_eval_step(normed, np.ones((n,), np.float32))
+        lr, out, tar, interp = self._to_host(*outputs)
+
+        m, mlr = margin, margin // self.scale_factor
+        crop = lambda a, mm: a[:, :, mm:a.shape[2] - mm, mm:a.shape[3] - mm] if mm else a
+        tstats = slice_stats(stats, self.step_config.target_idx)
+        batches = [dict(input=denorm(crop(lr, mlr), stats),
+                        target=denorm(crop(tar, m), tstats),
+                        interpolated=denorm(crop(interp, m), tstats),
+                        model=denorm(crop(out, m), tstats))]
+        result: Dict[str, Dict[str, LArray]] = {}
+        for ivar, vname in enumerate(self.target_variables):
+            result[vname] = self.assemble_images(
+                batches, ivar, ids, gs, input_ivar=self.input_variables.index(vname))
+        return result
+
+    # --------------------------------------------- whole-region inference
+    def infer_region_spatial(self, ctime: TimeType, **kwargs
+                             ) -> Dict[str, Dict[str, LArray]]:
+        """Whole-region inference: the active region runs through the
+        network as ONE image (B = 1), so there are no seams by construction
+        (parallel/spatial.py). H is zero-padded to a multiple of the scale
+        (one device; JAX pads to the mesh size times the scale) and cropped
+        after; the region's NaN holes are filled with the channel mean
+        before normalization and restored on the HR panels.
+
+        All six norm schemes: local stats over the whole region; tnorm and
+        tscale build per-pixel stats maps from the position-indexed sidecar
+        rows (data/norm.py:tile_stats_maps); the global schemes normalize
+        with the sidecar-global stats and, like the tiled path, return
+        normalized panels. target ⊂ input is handled by channel-slicing."""
+        ntype = cfg().task.norm
+        if self.domain != batchDomain.Tiles:
+            raise NotImplementedError("spatial inference requires a tiles-domain task")
+        self._maybe_update_model(kwargs)
+
+        with self.loader_lock:
+            region = self.dataset.load_region_data(ctime)       # (C, Y, X) raw
+            loader = self.dataset.srbatch.data_loader
+            sidecar = (loader.sidecar.get(loader._timeslice_iter)
+                       if ntype in ("tnorm", "tscale") else None)
+            gstats = (loader.sidecar.global_stats(loader._timeslice_iter)
+                      if ntype in ("gnorm", "gscale") else None)
+        grid = self.dataset.tile_grid
+        ishape = dict(c=region.shape[0], y=region.shape[1], x=region.shape[2])
+        roi = grid.get_active_region(image_shape=ishape)
+        gs = grid.get_grid_shape(image_shape=ishape)
+        active = region.data[:, roi["y"][0]:roi["y"][1], roi["x"][0]:roi["x"][1]]
+
+        sf = self.scale_factor
+        ypad = -active.shape[1] % sf
+        raw = active[None].astype(np.float32)
+        nan_mask = ~np.isfinite(raw)
+        fill = np.nanmean(raw, axis=(2, 3), keepdims=True)
+        raw = np.where(nan_mask, fill, raw)
+        if ntype in ("lnorm", "lscale"):
+            normed, stats = normalize_batch(raw, ntype, (0, 1))
+            hr_stats = lr_stats = stats
+        elif ntype in ("tnorm", "tscale"):
+            grid_hw = grid.get_full_tile_size()
+            d = active.reshape(active.shape[0], gs["y"], grid_hw["y"], gs["x"], grid_hw["x"])
+            finite = np.isfinite(d).all(axis=(0, 2, 4))      # (gy, gx)
+            valid_ids = np.flatnonzero(finite.ravel())
+            hr_stats = tile_stats_maps(valid_ids, gs, grid_hw, active.shape[1:], sidecar,
+                                       list(self.input_variables), ntype)
+            # tile-constant maps downsample exactly by strided slicing
+            lr_stats = {k: v[:, :, ::sf, ::sf] for k, v in hr_stats.items()}
+            normed = normalize_with_attrs(raw, hr_stats)
+        else:   # gnorm / gscale: normalize globally; panels stay normalized
+            col = lambda i: np.asarray([gstats[v][i] for v in self.input_variables],
+                                       np.float32).reshape(1, -1, 1, 1)
+            if ntype == "gnorm":
+                ga = {"mean": col(0), "std": np.sqrt(col(1))}
+            elif ntype == "gscale":
+                ga = {"max": col(2), "min": col(3)}
+            else:
+                raise ValueError(f"Unknown norm: {ntype}")
+            normed = normalize_with_attrs(raw, ga)
+            hr_stats = lr_stats = {}
+        hr = np.pad(normed, ((0, 0), (0, 0), (0, ypad), (0, 0)))
+
+        sc = self.step_config
+        with torch.inference_mode():
+            lr = downsample(self._to_device(hr), float(sf), sc.down_mode)
+            out = infer_region_sharded(self.model, lr)
+            interp = upsample(lr, float(sf), sc.up_mode)
+        lr, out, interp = self._to_host(lr, out, interp)
+        crop = lambda a, s: a[:, :, : a.shape[2] - ypad // s if ypad else None, :]
+        tidx = list(sc.target_idx)
+        t_hr_stats = slice_stats(hr_stats, tidx)
+        panels = dict(
+            input=denorm(crop(lr, sf), lr_stats),
+            target=denorm(crop(hr, 1)[:, tidx], t_hr_stats),
+            model=denorm(crop(out, 1), t_hr_stats),
+            interpolated=denorm(crop(interp, 1)[:, tidx], t_hr_stats),
+        )
+        # restore the region's NaN holes on the full-res panels
+        tgt_mask = nan_mask[:, tidx]
+        for key in ("target", "model", "interpolated"):
+            panels[key] = np.where(tgt_mask, np.nan, panels[key])
+        result: Dict[str, Dict[str, LArray]] = {}
+        for ivar, vname in enumerate(self.target_variables):
+            result[vname] = {
+                k: LArray(v[0, ivar if k != "input" else
+                            self.input_variables.index(vname)], ["y", "x"])
+                for k, v in panels.items()}
+        return result
+
+
+def _stats(attrs: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The denorm stats among a batch's attrs."""
+    return {k: attrs[k] for k in ("mean", "std", "max", "min") if k in attrs}

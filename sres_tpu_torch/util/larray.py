@@ -1,4 +1,4 @@
-"""Minimal labeled array (a numpy copy of sres_tpu/util/larray.py:1-111).
+"""Minimal labeled array (a numpy copy of sres_tpu/util/larray.py:1-91).
 
 The reference threads ``xa.DataArray`` objects with dims
 ('tiles','channels','y','x'), coords (tile ids, channel names) and attrs
@@ -79,3 +79,14 @@ class LArray:
                 else:
                     new_coords[dim] = np.asarray(new_coords[dim])[sl]
         return LArray(new_data, new_dims, new_coords, dict(self.attrs))
+
+    def sel(self, **selectors: Any) -> "LArray":
+        """Coordinate-label selection (single label → dim dropped)."""
+        indexers: Dict[str, Any] = {}
+        for dim, label in selectors.items():
+            coord = list(np.asarray(self.coords[dim]))
+            if isinstance(label, (list, tuple, np.ndarray)):
+                indexers[dim] = np.array([coord.index(l) for l in label])
+            else:
+                indexers[dim] = coord.index(label)
+        return self.isel(**indexers)

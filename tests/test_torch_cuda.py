@@ -864,3 +864,78 @@ def test_resgroup_fn_gradients_match_twin(dev):
     for a, b in zip(res[False], res[True]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
+
+
+@pytest.mark.cuda
+def test_assemble_tiles_on_the_card_matches_its_cpu_run(dev):
+    """The region mosaic scattered on the card equals the same call on the
+    CPU, bit for bit: tiles at their slots, NaN holes, padding (weight 0,
+    any id) dropped through the trash slot."""
+    from sres_tpu_torch.ops.assemble import assemble_tiles
+    rng = np.random.default_rng(90)
+    grid = {"y": 5, "x": 7}
+    ids = torch.from_numpy(rng.permutation(35)[:24])
+    ids = torch.cat([ids, torch.tensor([0, 3, 34, 0])])          # 4 pads
+    weight = torch.cat([torch.ones(24), torch.zeros(4)])
+    tiles = torch.from_numpy(rng.normal(size=(28, 12, 8)).astype(np.float32))
+    want = assemble_tiles(tiles, ids, grid, weight)
+    got = assemble_tiles(tiles.to(dev), ids.to(dev), grid, weight.to(dev))
+    assert got.is_cuda and got.shape == (60, 56)
+    assert torch.equal(torch.isnan(got).cpu(), torch.isnan(want))
+    assert int(torch.isnan(want).sum()) == 11 * 12 * 8
+    assert torch.equal(got.cpu().nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_whole_region_sample_matches_twin(dev):
+    """One 960×960 HR region's LR trunk input, (1, 64, 480, 480): ca_skip
+    (the two-pass kernel) and a 2-RCAB group with its trailing conv
+    (``wino_group_fwd``, m = 4) against their twins, f32 bound and bf16
+    envelope."""
+    from sres_tpu_torch.models.layers import init_torch_default
+    from sres_tpu_torch.models.wino_blocks import WinoResidualGroup
+    from sres_tpu_torch.ops import cuda
+    shape = (1, 64, 480, 480)
+    rng = np.random.default_rng(91)
+    assert cuda.load().sres_ca_skip_cluster(1, 480 * 480, 1, 0) == 0
+    q, r = _t(rng, shape, dev), _t(rng, shape, dev) + 0.3
+    ca = _ca_weights(rng, dev, 32)
+    _check(lambda q_, r_: twc.ca_skip(q_, r_, *ca),
+           lambda q_, r_: twc.ca_skip_plain(q_, r_, *ca),
+           (q, r), (q.bfloat16(), r.bfloat16()))
+    grp = init_torch_default(WinoResidualGroup(64, 2, 2, 4), 9).to(dev)
+    x = _t(rng, shape, dev).contiguous(memory_format=torch.channels_last)
+    outs = {}
+    with torch.no_grad():
+        for plain in (False, True):
+            grp.plain = plain
+            outs[plain] = (grp(x), grp(x.bfloat16()))
+    grp.plain = False
+    torch.cuda.synchronize()
+    (k32, kbf), (p32, pbf) = outs[False], outs[True]
+    assert float((k32 - p32).abs().max()) <= 1e-4 * float(p32.abs().max())
+    assert _rel(kbf, p32) <= 2 * _rel(pbf, p32) + 1e-4
+
+
+@pytest.mark.cuda
+def test_served_after_loading_weights_equals_a_fresh_model(dev):
+    """A Winograd RCAN (2 groups of 2 RCABs, bf16) serves, so its U caches
+    hold its weights; then other weights are loaded in place, as
+    ``CheckpointManager.load_checkpoint`` loads them. It then serves what a
+    model built from those weights serves, bit for bit: no stale U."""
+    from sres_tpu_torch.models import build_model
+    cfg = dict(name="rcan", nfeatures=64, nlayers=2, nblocks=2, cbottleneck=2,
+               kernel_size=3, downscale_factors=[2, 2], winograd=4)
+    lr = _t(np.random.default_rng(92), (3, 1, 24, 24), dev)
+    served = build_model(cfg, 1, 1, "bf16", seed=1, device=dev).eval()
+    other = build_model(cfg, 1, 1, "bf16", seed=2, device=dev).eval()
+    with torch.inference_mode():
+        before = served(lr)
+    served.load_state_dict(other.state_dict())
+    fresh = build_model(cfg, 1, 1, "bf16", seed=3, device=dev).eval()
+    fresh.load_state_dict(other.state_dict())
+    with torch.inference_mode():
+        after, want = served(lr), fresh(lr)
+    torch.cuda.synchronize()
+    assert not torch.equal(before, want)
+    assert torch.equal(after, want)

@@ -190,6 +190,17 @@ ctl = sres_tpu_torch.train.main([
     "model.nlayers=1", "model.nblocks=1", "dataset.ntimes=4", "dataset.image_size={y: 96, x: 96}",
     "task.tile_size={x: 8, y: 8}", "task.ttsplit={train: 0.5, valid: 0.25, test: 0.25}"])
 csv_rows = [l.split(",")[0] for l in open(ctl.trainer.results_accum.result_file_path())]
+import sres_tpu_torch.infer, sres_tpu_torch.ops.assemble, sres_tpu_torch.data.overlap
+import sres_tpu_torch.parallel.spatial
+served = sres_tpu_torch.infer.main([
+    "--model", "rcan-10-10-64", "--task", "synthetic-tiles-48", "--dataset", "synthetic",
+    "--platform", "local", "--seed", "1", "platform.root=" + root, "pipeline.device=cpu",
+    "pipeline.precision=f32", "task.batch_size=3", "model.nfeatures=4",
+    "model.nlayers=1", "model.nblocks=1", "dataset.ntimes=4", "dataset.image_size={y: 96, x: 96}",
+    "task.tile_size={x: 8, y: 8}", "task.ttsplit={train: 0.5, valid: 0.25, test: 0.25}"])
+sres_tpu_torch.config.ConfigContext.deactivate()
+import os
+nc_files = sorted(os.listdir(root + "/results/inference/synthetic/synthetic-tiles-48"))
 import shutil
 shutil.rmtree(root)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
@@ -201,7 +212,7 @@ print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
                       swin_keys=len(swin_sd), swin_out=swin_out,
                       swin16_out=swin16_out, t256_out=t256_out,
                       edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out,
-                      csv_rows=csv_rows)))
+                      csv_rows=csv_rows, nc_files=nc_files)))
 """
 
 
@@ -222,7 +233,9 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     2``, which then load strictly and run), of the conv chain, of a window-16
     SwinIR and of window attention at T = 256 (its CPU twin), and after
     one tiny epoch on the CPU through the launcher (config reader, data
-    pipeline, trainer, checkpoints, loss CSV)."""
+    pipeline, trainer, checkpoints, loss CSV), and after serving that
+    epoch's checkpoint through the inference launcher in every region mode
+    (one validation timestep: Tiles at 0, the image at 0)."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
     assert fresh_process["swin_keys"] == 25
@@ -233,6 +246,7 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     assert fresh_process["edsr_out"] == [1, 1, 32, 32]
     assert fresh_process["chain_out"] == [1, 4, 4, 4]
     assert fresh_process["csv_rows"] == ["train", "train", "valid", "test"]
+    assert fresh_process["nc_files"] == ["SST-0.image.nc", "SST-0.tiles.nc"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):
