@@ -173,7 +173,29 @@ Phases, one line each (every line carries the card's name and power limit):
    960) sample against its twin. One line a mode: seconds a region, HR
    tiles/s (land-free tiles), device ms and idle share (torch.profiler, a
    second call), peak memory, the trainer's host timers, launches a
-   region.
+   region;
+27. the repo's real data formats, on fixtures written to a temporary
+   directory (about 6.3 GB) and deleted at the end: (a) a SWOT dataset at
+   the real LLC4320 grid (nx = 4320: a 0.97 GB mask template and 0.87 GB
+   of big-endian ocean values a file; SSS and SST, 3 timesteps), the
+   compiled decoder against its numpy twin on one timestep, bit for bit,
+   then scripts/train/train-sss_sst-swot-2.2v_southpacific.py's
+   configuration through ``train.main`` (``swot_southpacific_1200``, 36 HR
+   tiles a timeslice; ``task.ttsplit`` 0.67/0.34, since the task's split
+   leaves none of 3 timesteps to validation): the CSV, the best-validation
+   checkpoint, the launches, the first step bit for bit against
+   build_train_step, the load's parts (read, decode, panel assembly, crop),
+   ms a step, the idle share of a profiled timeslice, peak memory; (b) its
+   checkpoint served: ``inference(0, Tiles)`` (inference-swot.py's mode;
+   each tile its own variable's lnorm, NetCDF read back) and
+   ``infer_region`` at 36 slots, and at ``swot_20-20e``'s ROI (1350 slots
+   in one padded batch) the same weights: each variable's target its own
+   raw region, the model panels held against the twins and cuDNN as in
+   phase 26; (c) 720 hourly 192² Cape Basin fields through
+   scripts/train/train-rcan-cape_basin.py's configuration on
+   ``LLC4320`` (the time domain, b32): the CSV, the split, ``evaluate`` on
+   the validation starts; (d) ``to_zarr.main`` of ``swot_20-20e`` read
+   back bit for bit against ``load_region_data``.
 
 Phase 9's profile of a step fails on a copy from the host to the card
 (the step's operands are on the card).
@@ -211,7 +233,8 @@ the serving and stash modes' times and bounds; ``ca_skip_bwd`` and
 ``fgroup_ca_bwd`` naming their kernels, each mode's time and bound in
 ``modes`` and ``mode_bound_ms``; ``serve_launches`` over the three
 requests of phases 5, 12, 16, 20 and 23; ``region_launches`` over phase 26's
-served calls, the comparisons' and the profiled repeats' left out; the
+served calls, the comparisons' and the profiled repeats' left out;
+``real_data_launches`` over phase 27's training runs and served calls; the
 chain's over the one probe launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
@@ -281,9 +304,12 @@ def card() -> str:
 
 
 CARD = ""
+T0 = time.perf_counter()   # the script's clock, reset by main
 
 
 def say(phase: str, **kv) -> None:
+    """One line: the phase, then its values and ``at_s``, the script's clock."""
+    kv["at_s"] = time.perf_counter() - T0
     print(f"[{CARD}] {phase}: " + json.dumps(kv, default=float), flush=True)
 
 
@@ -2438,6 +2464,124 @@ def _host_share(t) -> dict:
     return out
 
 
+class _TrainerCapture:
+    """While active, ``ModelTrainer`` keeps the padded batches it trains on,
+    the first step's weights and metrics, each timeslice's wall to the
+    card's end with its steps (``slices``), and runs timeslice number
+    ``profiled`` under torch.profiler (``profile``: its device rows and
+    steps)."""
+
+    def __init__(self, profiled: int):
+        self.profiled = profiled
+        self.batches, self.first, self.first_metrics = [], None, None
+        self.slices, self.profile = [], None
+
+    def __enter__(self):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from sres_tpu_torch.trainer.trainer import ModelTrainer
+        self.saved = run_step, run_slice = (ModelTrainer._run_train_step,
+                                            ModelTrainer._train_timeslice)
+        seen = self
+
+        def capture_step(tr, hr, weight):
+            if seen.first is None:
+                seen.first = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+            seen.batches.append((hr.copy(), weight.copy()))
+            met = run_step(tr, hr, weight)
+            if len(seen.batches) == 1:
+                seen.first_metrics = {k: v.detach().clone() for k, v in met.items()}
+            return met
+
+        def timed_slice(tr, train_times, itime):
+            # the wall to the card's end; the profiler's own processing after
+            # it is left out
+            steps0, t0 = tr.timers["steps"], time.perf_counter()
+            if len(seen.slices) == seen.profiled:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    out = run_slice(tr, train_times, itime)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                seen.profile = (rows, tr.timers["steps"] - steps0)
+            else:
+                out = run_slice(tr, train_times, itime)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            seen.slices.append((wall, tr.timers["steps"] - steps0))
+            return out
+
+        ModelTrainer._run_train_step, ModelTrainer._train_timeslice = capture_step, timed_slice
+        return self
+
+    def __exit__(self, *exc):
+        from sres_tpu_torch.trainer.trainer import ModelTrainer
+        ModelTrainer._run_train_step, ModelTrainer._train_timeslice = self.saved
+
+    def profile_line(self, label, wall_ms_per_step):
+        """The profiled timeslice: device ms, idle share against
+        ``wall_ms_per_step``, its host-to-device copies, the top kernels."""
+        rows, steps = self.profile
+        busy = sum(ms for _, ms, _ in rows)
+        htod = [dict(copy=k, ms=ms, calls=n) for k, ms, n in rows if k.startswith("Memcpy HtoD")]
+        rows = sorted(rows, key=lambda r: -r[1])
+        idle = 100.0 * (1 - busy / max(steps, 1) / wall_ms_per_step)
+        say(label, steps=steps, device_ms_total=busy, device_ms_per_step=busy / max(steps, 1),
+            device_idle_pct=idle, htod=htod,
+            top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in rows[:10]])
+        return busy, idle
+
+    def first_step(self, label, dev, model_cfg, task):
+        """The first step against build_train_step on the same padded batch
+        and weights, bit for bit; returns the step and the batches on the
+        card."""
+        import torch
+        from sres_tpu_torch.models import build_model
+        from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
+                                                 make_step_config)
+        nin, nout = len(task["input_variables"]), len(task["target_variables"])
+        model = build_model(model_cfg, nin, nout, "bf16", device="cuda")
+        model.load_state_dict(self.first)
+        step = build_train_step(model, build_optimizer(model, task),
+                                make_step_config(task, model_cfg))
+        staged = [(torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev))
+                  for h, w in self.batches]
+        met = step(*staged[0])
+        same = all(torch.equal(met[k], self.first_metrics[k]) for k in met)
+        say(f"{label} first step vs build_train_step",
+            trainer={k: float(v) for k, v in self.first_metrics.items()},
+            step={k: float(v) for k, v in met.items()}, bit_equal=same)
+        if not same:
+            raise CheckFailed(f"{label}: the trainer's first step differs from build_train_step's")
+        return step, staged
+
+
+def _launches_of(t):
+    """The kernels' launches expected of a trainer's run: its steps (the
+    zero-weight micro-batches of an accumulation tail run the step too) and
+    its eval batches."""
+    return {k: int(t.timers["steps"] + t.timers["pad_batches"]) * TRAIN_STEP_LAUNCHES[k]
+            + int(t.timers["eval_steps"]) * EVAL_STEP_LAUNCHES[k]
+            for k in TRAIN_STEP_LAUNCHES}
+
+
+def _train_launch(args):
+    """``train.main(args)`` with every launch count at 0 before it: the
+    trainer, its wall to the card's end, and its launches."""
+    import torch
+    from sres_tpu_torch.ops import winograd_conv as wc
+    from sres_tpu_torch.train import main as train_main
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    ctl = train_main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ctl.trainer, wall, {k: wc.LAUNCHES[k] for k in TRAIN_STEP_LAUNCHES}
+
+
 def phase_trainer(dev, root):
     """Phase 25: RCAN-10-20-64 ``winograd: 4`` trained through the port's
     launcher (config reader → synthetic data pipeline → ModelTrainer →
@@ -2445,113 +2589,40 @@ def phase_trainer(dev, root):
     ``root`` (phase 26 serves the checkpoints of its first run, under
     ``root / "a"``)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from sres_tpu_torch.models import build_model
-    from sres_tpu_torch.train import main as train_main
     from sres_tpu_torch.data.inference_io import TSet
-    from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
-                                             make_step_config)
-    from sres_tpu_torch.trainer.trainer import ModelTrainer
-    run_step, run_slice = ModelTrainer._run_train_step, ModelTrainer._train_timeslice
-    seen = dict(batches=[], first=None, slices=[], profile=None)
-
-    def capture_step(self, hr, weight):
-        # the padded batches and the first step's weights and metrics
-        if seen["first"] is None:
-            seen["first"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
-        seen["batches"].append((hr.copy(), weight.copy()))
-        met = run_step(self, hr, weight)
-        if len(seen["batches"]) == 1:
-            seen["first_metrics"] = {k: v.detach().clone() for k, v in met.items()}
-        return met
-
-    def timed_slice(self, train_times, itime):
-        # each timeslice's wall to the card's end, the steps in it; the
-        # third one under torch.profiler
-        steps0, t0 = self.timers["steps"], time.perf_counter()
-        if len(seen["slices"]) == 2:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                out = run_slice(self, train_times, itime)
-                torch.cuda.synchronize()
-            rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-            seen["profile"] = (rows, self.timers["steps"] - steps0)
-        else:
-            out = run_slice(self, train_times, itime)
-            torch.cuda.synchronize()
-        seen["slices"].append((time.perf_counter() - t0, self.timers["steps"] - steps0))
-        return out
 
     def launch(tag, *extra):
-        from sres_tpu_torch.ops import winograd_conv as wc
-        _reset_all_launches()
-        t0 = time.perf_counter()
-        ctl = train_main(TRAINER_ARGS + [f"platform.root={root / tag}"] + list(extra))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: wc.LAUNCHES[k] for k in TRAIN_STEP_LAUNCHES}
-        return ctl.trainer, wall, launches
+        return _train_launch(TRAINER_ARGS + [f"platform.root={root / tag}"] + list(extra))
 
-    def expect(t):
-        # zero-weight micro-batches of an accumulation tail run the step too
-        return {k: int(t.timers["steps"] + t.timers["pad_batches"]) * TRAIN_STEP_LAUNCHES[k]
-                + int(t.timers["eval_steps"]) * EVAL_STEP_LAUNCHES[k]
-                for k in TRAIN_STEP_LAUNCHES}
-
-    # 25a: one epoch from the seeded weights
-    ModelTrainer._run_train_step, ModelTrainer._train_timeslice = capture_step, timed_slice
+    # 25a: one epoch from the seeded weights; the first timeslice builds the
+    # step's caches, the third is profiled
     torch.cuda.reset_peak_memory_stats(dev)
-    try:
+    with _TrainerCapture(profiled=2) as seen:
         tr, wall, launches_a = launch("a", "task.nepochs=1")
-    finally:
-        ModelTrainer._run_train_step, ModelTrainer._train_timeslice = run_step, run_slice
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     t = dict(tr.timers)
     rows = _csv_rows(tr)
     ckpts = sorted(p.name.split(".", 1)[1] for p in (root / "a/results/checkpoints").iterdir())
     nts = len(tr.data_timestamps[TSet.Train])
-    # the first timeslice builds the step's caches, the third is profiled
-    steady = seen["slices"][1:2] + seen["slices"][3:]
+    steady = seen.slices[1:2] + seen.slices[3:]
     steady_ms = 1e3 * sum(w for w, _ in steady) / max(sum(n for _, n in steady), 1)
     say("25a trainer epoch", wall_s=wall, train_s=t["train"], steps=t["steps"],
         eval_steps=t["eval_steps"], train_timeslices=nts, rows=len(rows), checkpoints=ckpts,
         trainer_ms_per_step=1e3 * t["train"] / t["steps"],
         trainer_ms_per_step_steady=steady_ms,
         validation_s=t["valid"], test_s=t["test"], peak_mem_gb=peak_gb,
-        launches=launches_a, expected=expect(tr), **_host_share(t))
+        launches=launches_a, expected=_launches_of(tr), **_host_share(t))
     _check_rows("25a", rows, nts + 2)
     if not {"train.ckpt", "valid.ckpt"} <= set(ckpts):
         raise CheckFailed(f"25a: checkpoint slots {ckpts}")
-    if launches_a != expect(tr) or min(launches_a.values()) <= 0:
-        raise CheckFailed(f"25a: launches {launches_a} != {expect(tr)}")
-    prof_rows, prof_steps = seen["profile"]
-    busy = sum(ms for _, ms, _ in prof_rows)
-    htod = [dict(copy=k, ms=ms, calls=n) for k, ms, n in prof_rows
-            if k.startswith("Memcpy HtoD")]
-    prof_rows.sort(key=lambda r: -r[1])
-    say("25a trainer profile, one timeslice", steps=prof_steps, device_ms_total=busy,
-        device_ms_per_step=busy / max(prof_steps, 1),
-        device_idle_pct=100.0 * (1 - busy / max(prof_steps, 1) / steady_ms), htod=htod,
-        top=[dict(kernel=k[:90], ms=ms, calls=n) for k, ms, n in prof_rows[:10]])
+    if launches_a != _launches_of(tr) or min(launches_a.values()) <= 0:
+        raise CheckFailed(f"25a: launches {launches_a} != {_launches_of(tr)}")
+    seen.profile_line("25a trainer profile, one timeslice", steady_ms)
 
     # the first step against build_train_step on the same padded batch
     # and weights, and build_train_step alone over the epoch's batches
-    model = build_model(MODEL_CFG, 1, 1, "bf16", device="cuda")
-    model.load_state_dict(seen["first"])
     del tr
-    step = build_train_step(model, build_optimizer(model, TRAIN_TASK),
-                            make_step_config(TASK_CFG, MODEL_CFG))
-    staged = [(torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev))
-              for h, w in seen["batches"]]
-    met = step(*staged[0])
-    first = seen["first_metrics"]
-    same = all(torch.equal(met[k], first[k]) for k in met)
-    say("25a first step vs build_train_step", trainer={k: float(v) for k, v in first.items()},
-        step={k: float(v) for k, v in met.items()}, bit_equal=same)
-    if not same:
-        raise CheckFailed("25a: the trainer's first step differs from build_train_step's")
+    step, staged = seen.first_step("25a", dev, MODEL_CFG, TRAIN_TASK)
     for hw in staged[1:3]:
         step(*hw)                                   # warm-up
     torch.cuda.synchronize()
@@ -2563,18 +2634,18 @@ def phase_trainer(dev, root):
     say("25a trainer vs build_train_step alone", steps=len(staged),
         step_alone_ms_per_step=alone_ms, trainer_ms_per_step_steady=steady_ms,
         trainer_over_alone=steady_ms / alone_ms)
-    del model, step, staged, seen["batches"]
+    del step, staged, seen
 
     # 25b: resume from the train checkpoint for one more epoch
     tr, wall, launches = launch("a", "task.nepochs=2")
     rows_b = _csv_rows(tr)
     say("25b trainer resumed", wall_s=wall, steps=tr.timers["steps"],
         eval_steps=tr.timers["eval_steps"], rows=len(rows_b), first_new_row=rows_b[nts + 2],
-        launches=launches, expected=expect(tr))
+        launches=launches, expected=_launches_of(tr))
     # the checkpoint's timeslice again (reference semantics), validation,
     # epoch 2, validation, test
     _check_rows("25b", rows_b, (nts + 2) + (nts + 4))
-    if rows_b[nts + 2][:2] != ["train", f"{(nts - 1) / nts:.3f}"] or launches != expect(tr):
+    if rows_b[nts + 2][:2] != ["train", f"{(nts - 1) / nts:.3f}"] or launches != _launches_of(tr):
         raise CheckFailed(f"25b: resumed at {rows_b[nts + 2]}, launches {launches}")
     del tr
 
@@ -2587,10 +2658,10 @@ def phase_trainer(dev, root):
         nsteps = int(tr.timers["steps"])
         say(f"25c trainer {tag}", wall_s=wall, steps=nsteps, adam_updates=sorted(updates),
             rows=len(rows_c), trainer_ms_per_step=1e3 * tr.timers["train"] / nsteps,
-            launches=launches, expected=expect(tr))
+            launches=launches, expected=_launches_of(tr))
         _check_rows(f"25c {tag}", rows_c, 2)
         want_updates = {nsteps} if tag == "multi" else set(range(nsteps // 2, nsteps))
-        if not updates <= want_updates or launches != expect(tr):
+        if not updates <= want_updates or launches != _launches_of(tr):
             raise CheckFailed(f"25c {tag}: {updates} updates for {nsteps} batches, "
                               f"launches {launches}")
         del tr
@@ -2616,15 +2687,22 @@ def _region_overrides(size, root):
 def _raw_region(tr, ctime):
     """The raw SST of the active region, its NaN mask, and the mask of the
     tiles a tiled mode drops (any NaN in the tile)."""
+    region, dropped, _ = _active_region(tr, ctime)
+    return region[0], ~np.isfinite(region[0]), dropped
+
+
+def _active_region(tr, ctime):
+    """The raw (C, Y, X) active region of a timestep, the mask of the tiles
+    a tiled mode drops (any NaN in any channel), and the grid's shape."""
     region = tr.dataset.load_region_data(ctime).data
     grid = tr.dataset.tile_grid
     ishape = dict(c=region.shape[0], y=region.shape[1], x=region.shape[2])
     roi = grid.get_active_region(image_shape=ishape)
     gs = grid.get_grid_shape(image_shape=ishape)
-    raw = region[0, roi["y"][0]:roi["y"][1], roi["x"][0]:roi["x"][1]]
+    act = region[:, roi["y"][0]:roi["y"][1], roi["x"][0]:roi["x"][1]]
     t = REGION_TILE
-    dropped = ~np.isfinite(raw.reshape(gs["y"], t, gs["x"], t)).all(axis=(1, 3))
-    return raw, ~np.isfinite(raw), np.repeat(np.repeat(dropped, t, 0), t, 1)
+    ok = np.isfinite(act.reshape(act.shape[0], gs["y"], t, gs["x"], t)).all(axis=(0, 2, 4))
+    return act, np.repeat(np.repeat(~ok, t, 0), t, 1), gs
 
 
 def _check_image(label, panels, raw, holes):
@@ -2642,9 +2720,9 @@ def _check_image(label, panels, raw, holes):
                           f"{float(np.abs(tgt[keep] - raw[keep]).max())}")
 
 
-def _check_netcdf(label, structure, timestep, written):
+def _check_netcdf(label, structure, timestep, written, var="SST"):
     from sres_tpu_torch.data.inference_io import load_inference_results
-    back, _ = load_inference_results("SST", structure, timestep)
+    back, _ = load_inference_results(var, structure, timestep)
     for k, v in written.items():
         want = np.asarray(v.data, np.float32)
         if not np.array_equal(back[k].data, want, equal_nan=True):
@@ -2675,11 +2753,12 @@ def _twins_and_direct(tr, dev):
     from sres_tpu_torch.models import build_model
     from sres_tpu_torch.models.layers import set_plain_twins
     sd = tr.model.state_dict()
+    nin, nout = len(tr.input_variables), len(tr.target_variables)
     out = {}
     for name, cfg, prec in (("plain_f32", MODEL_CFG, "f32"),
                             ("direct_f32", dict(MODEL_CFG, winograd=None), "f32"),
                             ("direct_bf16", dict(MODEL_CFG, winograd=None), "bf16")):
-        m = build_model(cfg, 1, 1, prec, device=dev)
+        m = build_model(cfg, nin, nout, prec, device=dev)
         m.load_state_dict(sd)
         set_plain_twins(m, True)
         out[name] = m.eval()
@@ -2693,21 +2772,29 @@ def _panel_err(a, ref):
     return float(np.abs(a[fin] - ref[fin]).max() / np.abs(ref[fin]).max())
 
 
-def _hold(label, tr, run, served, others):
+def _hold(label, tr, run, served, others, twin_misses_cudnn_ok=False):
     """``served``'s model panel (the kernel path, bf16) against the same
     run on the plain twins and the direct trunk: in f32 the twins and cuDNN
     within GROUP_F32_TOL, and the kernels within the bf16 envelope of each,
     2·rel_err(twins bf16, f32) + 1e-4 and 2·rel_err(cuDNN bf16, f32) +
-    1e-4 (errors over the finite pixels, against the twins in f32)."""
+    1e-4 (errors over the finite pixels, against the twins in f32). With
+    ``twin_misses_cudnn_ok``, a miss of cuDNN's envelope passes where the
+    twins in bf16 miss it too (the Winograd algorithm's bf16 rounding, not
+    the kernel's: phase 27's white-noise SWOT fixture)."""
     from sres_tpu_torch.models.layers import set_plain_twins
+    secs = {}
+    t0 = time.perf_counter()
     set_plain_twins(tr.model, True)
     try:
         got = {"plain_bf16": run(update_model=False)}
     finally:
         set_plain_twins(tr.model, False)
+    secs["plain_bf16"] = time.perf_counter() - t0
     for name, m in others.items():
+        t0 = time.perf_counter()
         with _Serving(tr, m):
             got[name] = run(update_model=False)
+        secs[name] = time.perf_counter() - t0
     ref = got["plain_f32"]
     e = {k: _panel_err(v, ref) for k, v in got.items() if k != "plain_f32"}
     e["kernel_bf16"] = _panel_err(served, ref)
@@ -2716,8 +2803,13 @@ def _hold(label, tr, run, served, others):
     res = dict(case=label, bf16_kernel_rel=e["kernel_bf16"], bf16_plain_rel=e["plain_bf16"],
                bf16_direct_rel=e["direct_bf16"], bound=bounds["plain_bf16"],
                direct_bound=bounds["direct_bf16"],
-               f32_direct_vs_plain_rel=e["f32_direct_vs_plain"], f32_bound=GROUP_F32_TOL)
-    if not (e["kernel_bf16"] <= min(bounds.values())
+               f32_direct_vs_plain_rel=e["f32_direct_vs_plain"], f32_bound=GROUP_F32_TOL,
+               run_s=secs,
+               kernel_within_direct_bound=e["kernel_bf16"] <= bounds["direct_bf16"],
+               plain_within_direct_bound=e["plain_bf16"] <= bounds["direct_bf16"])
+    direct_ok = res["kernel_within_direct_bound"] or (
+        twin_misses_cudnn_ok and not res["plain_within_direct_bound"])
+    if not (e["kernel_bf16"] <= bounds["plain_bf16"] and direct_ok
             and e["f32_direct_vs_plain"] <= GROUP_F32_TOL):
         raise CheckFailed(f"{label} against twins and direct trunk: {res}")
     return res
@@ -2953,8 +3045,289 @@ def phase_region_sample(tr, dev, size):
                      GROUP_F32_TOL))
 
 
+# ----------------------------------------------------- 27 real data formats
+# the SWOT fixture: the real LLC4320 grid (13·4320² points: a 0.97 GB mask
+# template, 0.87 GB of big-endian ocean values a file), SSS and SST, 3
+# timesteps, in config/dataset/swot*.yaml's layout
+SWOT_NX, SWOT_NTIMES, SWOT_VARS = 4320, 3, ("SSS", "SST")
+# scripts/train/train-sss_sst-swot-2.2v_southpacific.py through the port's
+# launcher, one epoch, model.winograd=4; the one reduction is the split: 3
+# timesteps leave none to validation at the task's 0.95 / 0.05, so 0.67 /
+# 0.34 (2 train, 1 validation)
+SWOT_GROUPS = dict(task="SSS_SST-tiles-48", dataset="swot_southpacific_1200",
+                   pipeline="sres", platform="local")
+SWOT_SPLIT = {"train": 0.67, "valid": 0.34, "test": 0.0}
+SWOT_TASK = dict(input_variables=list(SWOT_VARS), target_variables=list(SWOT_VARS),
+                 downsample_mode="cubic", upsample_mode="cubic", lr=5e-5)
+# scripts/train/train-rcan-cape_basin.py on config/dataset/LLC4320.yaml: 720
+# hourly 192×192 HR fields, cape_basin_1x1 (batch 32 of consecutive hours at
+# one location), the task's own split
+CAPE_HOURS = 720
+CAPE_GROUPS = dict(task="cape_basin_1x1", dataset="LLC4320", pipeline="sres",
+                   platform="local")
+
+
+def _args(groups, overrides):
+    """The launchers' arguments for RCAN-10-20-64 on ``groups``."""
+    return (["--model", "rcan-10-20-64", "--task", groups["task"], "--dataset",
+             groups["dataset"], "--platform", groups["platform"], "--seed", "42"]
+            + [f"{k}={v}" for k, v in overrides.items()])
+
+
+def _tree_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def _same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint32), b.view(np.uint32))
+
+
+def phase_decoder(fixture):
+    """27a: the compiled decoder against its numpy twin on one full
+    timestep, bit for bit, NaN pattern included."""
+    import os
+    from sres_tpu_torch import native
+    native.load()
+    t = [time.perf_counter()]
+    mask = np.fromfile(fixture / "meta/hFacC_k0.data", ">f4") != 0
+    raw = np.fromfile(fixture / "raw/SST/SST.0000.shrunk", np.uint32)
+    t.append(time.perf_counter())
+    smap = native.build_scatter_map(mask)
+    t.append(time.perf_counter())
+    full = native.decode_timestep(raw, smap)
+    t.append(time.perf_counter())
+    plain_map = native.build_scatter_map_plain(mask)
+    t.append(time.perf_counter())
+    plain = native.decode_timestep_plain(raw, smap)
+    t.append(time.perf_counter())
+    same_map = np.array_equal(smap, plain_map)
+    same = _same_bits(full, plain)
+    land = np.array_equal(np.isnan(full), ~mask)
+    say("27a decoder vs its numpy twin, one timestep", points=int(mask.size),
+        ocean=int(mask.sum()), bit_equal=same, map_equal=same_map, nan_where_land=land,
+        read_s=t[1] - t[0], map_s=t[2] - t[1], decode_s=t[3] - t[2],
+        map_plain_s=t[4] - t[3], decode_plain_s=t[5] - t[4],
+        build_s=native.build_seconds, cpu_count=os.cpu_count(),
+        cpus_usable=len(os.sched_getaffinity(0)))
+    if not (same and same_map and land):
+        raise CheckFailed("27a: the compiled decoder differs from its numpy twin")
+
+
+def _check_panels(label, images, region, holes):
+    """Each variable's served panels: the target its own raw region (rtol
+    2e-4, its own stats), NaN exactly at ``holes``, the model finite
+    elsewhere."""
+    for iv, var in enumerate(SWOT_VARS):
+        tgt, mod = images[var]["target"].data, images[var]["model"].data
+        raw = region[iv]
+        if tgt.shape != raw.shape or not np.array_equal(np.isnan(tgt), holes) \
+                or not np.array_equal(np.isfinite(mod), ~holes):
+            raise CheckFailed(f"{label} {var}: holes or shape differ from the region's")
+        if not np.allclose(tgt[~holes], raw[~holes], rtol=2e-4, atol=2e-4):
+            raise CheckFailed(f"{label} {var}: target is not the raw region (max |d| "
+                              f"{float(np.abs(tgt[~holes] - raw[~holes]).max())})")
+
+
+def phase_real_data(dev, tmp):
+    """Phase 27: the repo's real data formats through the port's launchers
+    on RCAN-10-20-64 ``winograd: 4``: SWOT at the real LLC4320 grid, trained
+    (27a) and served (27b); LLC4320 Cape Basin's time domain (27c); the zarr
+    export (27d). Fixtures under ``tmp``, deleted by the caller."""
+    import shutil as sh
+    import torch
+    from sres_tpu_torch.config import ConfigContext, cfg
+    from sres_tpu_torch.controller import ResultStructure, TSet, WorkflowController
+    from sres_tpu_torch.data.synthetic import _field, write_swot_fixture
+    from sres_tpu_torch.trainer.checkpoints import CheckpointManager
+    from sres_tpu_torch.trainer.trainer import ttsplit_times
+    launches = {k: 0 for k in TRAIN_STEP_LAUNCHES}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 27a: the fixture, the decoder, one epoch through the launcher
+    fixture, root = tmp / "swot", tmp / "swot_run"
+    t0 = time.perf_counter()
+    write_swot_fixture(str(fixture), nx=SWOT_NX, ntimes=SWOT_NTIMES, varnames=SWOT_VARS)
+    say("27a SWOT fixture", nx=SWOT_NX, variables=SWOT_VARS, timesteps=SWOT_NTIMES,
+        bytes=_tree_bytes(fixture), write_s=time.perf_counter() - t0,
+        disk_free_gb=sh.disk_usage(tmp).free / 1e9)
+    phase_decoder(fixture)
+    over = {"model.winograd": 4, "dataset.dataset_root": str(fixture),
+            "platform.root": str(root), "task.ttsplit": SWOT_SPLIT}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _TrainerCapture(profiled=1) as seen:
+        tr, wall, counts = _train_launch(_args(SWOT_GROUPS, dict(over, **{"task.nepochs": 1})))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    add(counts)
+    t, parts = dict(tr.timers), dict(tr.dataset.srbatch.data_loader.timers)
+    rows = _csv_rows(tr)
+    nts, nval = (len(tr.data_timestamps[s]) for s in (TSet.Train, TSet.Validation))
+    ckpts = sorted(p.name.split(".", 1)[1] for p in (root / "results/checkpoints").iterdir())
+    prof_wall, prof_steps = seen.slices[1]
+    say("27a SWOT trainer epoch", split=SWOT_SPLIT,
+        reduction="ttsplit 0.67/0.34/0: the task's 0.95/0.05 leaves none of 3 timesteps "
+                  "to validation", wall_s=wall, train_s=t["train"], steps=t["steps"],
+        eval_steps=t["eval_steps"], train_timeslices=nts, valid_timeslices=nval,
+        rows=len(rows), checkpoints=ckpts, ms_per_step=1e3 * t["train"] / t["steps"],
+        timeslice_walls_s=[w for w, _ in seen.slices], validation_s=t["valid"],
+        load_s=t["load"], load_parts_s=parts, peak_mem_gb=peak_gb, launches=counts,
+        expected=_launches_of(tr), **_host_share(t))
+    _check_rows("27a", rows, nts + nval)
+    if "valid.ckpt" not in ckpts or nval < 1:
+        raise CheckFailed(f"27a: no best-validation checkpoint: {ckpts}")
+    if counts != _launches_of(tr) or min(counts.values()) <= 0:
+        raise CheckFailed(f"27a: launches {counts} != {_launches_of(tr)}")
+    seen.profile_line("27a SWOT trainer profile, the second timeslice (its load included)",
+                      1e3 * prof_wall / max(prof_steps, 1))
+    del tr
+    seen.first_step("27a SWOT", dev, MODEL_CFG, SWOT_TASK)
+    del seen
+
+    # 27b: served from 27a's best-validation checkpoint: Tiles (the mode of
+    # scripts/inference/inference-swot.py) and infer_region at 36 slots, then
+    # the same weights at swot_20-20e's ROI, 1350 slots in one padded batch
+    ckpt_a = None
+    for groups in (SWOT_GROUPS, dict(SWOT_GROUPS, dataset="swot_20-20e")):
+        ctl = WorkflowController("sres", groups, seed=42)
+        try:
+            ctl.initialize("sres", "rcan-10-20-64", **groups, **over)
+            tr = ctl.trainer
+            if ckpt_a is None:
+                ckpt_a = CheckpointManager.checkpoint_path(TSet.Validation)
+            else:
+                sh.copyfile(ckpt_a, CheckpointManager.checkpoint_path(TSet.Validation))
+            tr.init_data_timestamps()
+            cv = tr.data_timestamps[TSet.Validation][0]
+            region, holes, gs = _active_region(tr, cv)
+            nslots = gs["x"] * gs["y"]
+            ntiles = nslots - int(holes.sum()) // REGION_TILE ** 2
+            tag = f"27b {groups['dataset']} {nslots} slots"
+            loader = tr.dataset.srbatch.data_loader
+            parts0 = dict(loader.timers)
+
+            def region_run(update_model=True):
+                return tr.infer_region(cv, update_model=update_model)
+
+            out, _, counts, st = _served(tr, region_run, ntiles, 1, dev)
+            add(counts)
+            if counts != {k: EVAL_STEP_LAUNCHES[k] for k in counts}:
+                raise CheckFailed(f"{tag}: launches {counts} a forward")
+            _check_panels(tag, out, region, holes)
+            model_panels = lambda r: np.stack([r[v]["model"].data for v in SWOT_VARS])
+            # white-noise fields: the twins' bf16 may miss cuDNN's envelope
+            held = _hold(tag, tr, lambda **kw: model_panels(region_run(**kw)), model_panels(out),
+                         _twins_and_direct(tr, dev), twin_misses_cudnn_ok=True)
+            say(f"{tag} infer_region", mode_s=time.perf_counter() - st.pop("_t0"),
+                slots=nslots, tiles=ntiles, grid=gs, **st,
+                load_parts_s={k: v - parts0.get(k, 0.0) for k, v in loader.timers.items()},
+                **held)
+            if groups is not SWOT_GROUPS:
+                continue
+            # Tiles at the validation timestep: each tile's target its own
+            # variable's lnorm'd raw values; the NetCDF files read back
+            tiles = tr.dataset.load_timeslice(cv).data.astype(np.float64)
+            want = (tiles - tiles.mean(axis=(2, 3), keepdims=True)) / \
+                tiles.std(axis=(2, 3), keepdims=True)
+
+            def tiles_run(update_model=True, save=True):
+                return ctl.inference(0, ResultStructure.Tiles, update_model=update_model,
+                                     save=save)
+
+            out, _, counts, st = _served(tr, tiles_run, ntiles, 1, dev)
+            add(counts)
+            if counts != {k: st["eval_steps"] * EVAL_STEP_LAUNCHES[k] for k in counts}:
+                raise CheckFailed(f"27b Tiles: launches {counts}")
+            for iv, var in enumerate(SWOT_VARS):
+                p = out[0][var]
+                if not (p["target"].shape == want[:, iv].shape
+                        and np.allclose(p["target"].data, want[:, iv], rtol=2e-4, atol=2e-4)
+                        and np.isfinite(p["model"].data).all()):
+                    raise CheckFailed(f"27b Tiles {var}: target tiles are not the normalized "
+                                      "region's")
+                _check_netcdf(f"27b Tiles {var}", ResultStructure.Tiles, 0, p, var)
+            say("27b swot_southpacific_1200 Tiles (inference-swot.py's mode)",
+                mode_s=time.perf_counter() - st.pop("_t0"), tiles=ntiles, **st)
+        finally:
+            ConfigContext.deactivate()
+            ctl = tr = None
+
+    # 27c: Cape Basin, the time domain: 720 hourly HR fields
+    cape, cape_root = tmp / "cape", tmp / "cape_run"
+    (cape / "sst_192x192").mkdir(parents=True)
+    t0 = time.perf_counter()
+    for i in range(CAPE_HOURS):
+        field = 12.0 + 2.0 * _field(np.random.default_rng(27), 192, 192, i / 24.0)
+        np.save(cape / f"sst_192x192/hr_sst_{i + 1:04d}.npy", field.astype(np.float32))
+    say("27c Cape Basin fixture", fields=CAPE_HOURS, shape=[192, 192],
+        bytes=_tree_bytes(cape), write_s=time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _TrainerCapture(profiled=2) as seen:
+        tr, wall, counts = _train_launch(_args(CAPE_GROUPS, {
+            "model.winograd": 4, "task.nepochs": 1, "dataset.dataset_root": str(cape),
+            "platform.root": str(cape_root)}))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    add(counts)
+    try:
+        t = dict(tr.timers)
+        rows = _csv_rows(tr)
+        nts = len(tr.data_timestamps[TSet.Train])
+        steady = seen.slices[1:2] + seen.slices[3:]
+        steady_ms = 1e3 * sum(w for w, _ in steady) / max(sum(n for _, n in steady), 1)
+        expected = _launches_of(tr)
+        # the launcher's context again: the split of the batch starts, and
+        # evaluate on the validation starts from the best checkpoint
+        with ConfigContext("sres", model="rcan-10-20-64", **CAPE_GROUPS, **{
+                "model.winograd": 4, "dataset.dataset_root": str(cape),
+                "platform.root": str(cape_root)}):
+            starts = tr.dataset.get_batch_time_coords(shuffle=False)
+            split = {s.value: len(v) for s, v in ttsplit_times(starts).items()}
+            _, losses = tr.evaluate(TSet.Validation, update_model=True, update_checkpoint=False)
+        say("27c Cape Basin trainer epoch", batch_starts=len(starts), split=split, wall_s=wall,
+            train_s=t["train"], steps=t["steps"], eval_steps=t.get("eval_steps", 0),
+            rows=len(rows), csv=rows, ms_per_step=1e3 * t["train"] / t["steps"],
+            ms_per_step_steady=steady_ms,
+            load_s=t["load"], batch_load_s=t["assemble"], validation_s=t["valid"],
+            peak_mem_gb=peak_gb, launches=counts, expected=expected,
+            evaluate_valid=losses, **_host_share(t))
+        _check_rows("27c", rows, nts + 2)
+        if split["valid"] < 1 or counts != expected or min(counts.values()) <= 0:
+            raise CheckFailed(f"27c: split {split}, launches {counts} != {expected}")
+        if not losses or not all(math.isfinite(v) for v in losses.values()):
+            raise CheckFailed(f"27c: evaluate on the validation set gave {losses}")
+        seen.profile_line("27c Cape Basin trainer profile, one batch", steady_ms)
+    finally:
+        tr = seen = None
+
+    # 27d: the zarr export of swot_20-20e through its launcher
+    from sres_tpu_torch.data.swot import SWOTRawDataLoader
+    from sres_tpu_torch.to_zarr import main as to_zarr_main
+    from sres_tpu_torch.util.zarrlite import read_zarr
+    t0 = time.perf_counter()
+    store = to_zarr_main(_args(dict(SWOT_GROUPS, dataset="swot_20-20e"), {
+        "dataset.dataset_root": str(fixture), "platform.root": str(tmp / "zarr_run")}))
+    export_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        back = read_zarr(store)
+        read_s = time.perf_counter() - t0
+        loader = SWOTRawDataLoader(cfg().task)
+        same = [_same_bits(back[i], loader.load_region_data(i).data)
+                for i in loader.get_dset_time_indices()]
+    finally:
+        ConfigContext.deactivate()
+    say("27d zarr export, swot_20-20e", store=Path(store).name, shape=list(back.shape),
+        bytes=_tree_bytes(store), export_s=export_s, read_s=read_s, bit_equal=same)
+    if back.shape[:2] != (SWOT_NTIMES, len(SWOT_VARS)) or not all(same):
+        raise CheckFailed(f"27d: the zarr store {back.shape} does not read back as "
+                          f"load_region_data: {same}")
+    return launches
+
+
 def main() -> int:
-    global CARD
+    global CARD, T0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2978,7 +3351,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
 
-    t_all = time.perf_counter()
+    t_all = T0 = time.perf_counter()
     build_s = phase_toolchain()
     kern = {"wino_conv": phase_conv(dev, rng), "ca_skip": phase_ca(dev, rng)}
     phase_group(dev, args.seed)
@@ -3015,6 +3388,11 @@ def main() -> int:
         region_launches = phase_region(dev, root / "a")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    root = Path(tempfile.mkdtemp(prefix="sres_real_data_"))
+    try:
+        real_data_launches = phase_real_data(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -3046,7 +3424,8 @@ def main() -> int:
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
              launches=launches[k], serve_launches=serve_launches.get(k, 0),
              trainer_launches=trainer_launches.get(k, 0),
-             region_launches=region_launches.get(k, 0), **kern[k],
+             region_launches=region_launches.get(k, 0),
+             real_data_launches=real_data_launches.get(k, 0), **kern[k],
              **cuda_kernels.get(k, {}))
         for k in where]}))
     print(f"card: {CARD}")

@@ -3,8 +3,8 @@ sres_tpu/controller/workflow.py:21-165; reference sres/controller/workflow.py):
 train a list of models, each in its own config context, and serve them:
 tile- and image-structured inference with the NetCDF artifacts, over the
 region modes ``tiled``, ``seamless`` and ``spatial``, and pipelined over
-timesteps (``inference_stream``). The zarr export and the result views
-wait for ROADMAP Queue 1 items 5 and 7.
+timesteps (``inference_stream``); export the region dataset to zarr
+(``to_zarr``). The result views wait for ROADMAP Queue 1 item 7.
 
 Unlike the JAX controller, a failure in training is not caught and logged:
 it propagates, so a kernel or build fault stops the run.
@@ -19,6 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from sres_tpu_torch.config import ConfigContext, cfg
 from sres_tpu_torch.data.inference_io import (ResultStructure, TSet,
                                               save_inference_results)
+from sres_tpu_torch.data.tiles import batchDomain
 from sres_tpu_torch.trainer.trainer import ModelTrainer
 from sres_tpu_torch.util.larray import LArray
 from sres_tpu_torch.util.logging import LogManager, lgm
@@ -154,10 +155,20 @@ class WorkflowController:
         self.config = cc
         self.trainer = ModelTrainer(cc, seed=self.seed)
 
+    def to_zarr(self, **kwargs) -> str:
+        return self.trainer.to_zarr(**kwargs)
+
     def test(self, model: str, test_name: str, **kwargs) -> None:
+        """``load_raw_dataset``: load the first time index, as a timeslice of
+        tiles (tiles domain) or as the task's domain of every variable
+        (time domain: ``sres_tpu`` asks its S3 export reader for a
+        timeslice, which it lacks, and raises AttributeError)."""
         with ConfigContext(self.cname, model=model, **kwargs) as cc:
             self.config = cc
             self.trainer = ModelTrainer(cc, seed=self.seed)
             if test_name == "load_raw_dataset":
                 times = self.trainer.get_dset_time_indices()
-                self.trainer.dataset.load_timeslice(times[0])
+                if self.trainer.domain == batchDomain.Time:
+                    self.trainer.dataset.load_region_data(times[0])
+                else:
+                    self.trainer.dataset.load_timeslice(times[0])

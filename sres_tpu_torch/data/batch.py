@@ -4,9 +4,11 @@ sres/base/source/batch.py:241-315, sres/base/source/loader/batch.py:56-66,
 sres/data/batch.py).
 
 Source dispatch is by dataset-name prefix exactly like the reference:
-``synthetic*`` → SyntheticDataLoader. The ``swot*`` (SWOT raw binary) and
-``LLC4320*`` (S3 export) readers are not ported yet and raise
-``NotImplementedError`` (ROADMAP Queue 1 item 2).
+``LLC4320*`` → S3ExportDataLoader (time-domain), ``swot*`` →
+SWOTRawDataLoader (tiles-domain), ``synthetic*`` → SyntheticDataLoader.
+``merra2*``, which ``sres_tpu`` serves by its own datapipe and not through
+the SR trainer (its ``get_loader`` returns None), raises
+``NotImplementedError`` (ROADMAP Queue 1 item 11).
 The random 8-way flip/transpose augmentation (xyflip) runs on the host with
 a seedable numpy Generator instead of the reference's process-global
 ``random`` so multi-host runs stay reproducible (SURVEY.md §7 hard parts).
@@ -19,6 +21,8 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 
 from sres_tpu_torch.config import cfg
+from sres_tpu_torch.data.s3export import S3ExportDataLoader
+from sres_tpu_torch.data.swot import SWOTRawDataLoader
 from sres_tpu_torch.data.synthetic import SyntheticDataLoader
 from sres_tpu_torch.data.tiles import TileGrid, batchDomain
 from sres_tpu_torch.util.larray import LArray
@@ -50,12 +54,15 @@ def xyflip(batch: LArray, rng: np.random.Generator, enabled: bool,
 
 def get_loader(task, tile_size: Dict[str, int], **kwargs):
     dset: str = task.dataset
+    if dset.startswith("LLC4320"):
+        return S3ExportDataLoader(task, tile_size, **kwargs)
+    if dset.startswith("swot"):
+        return SWOTRawDataLoader(task, **kwargs)
     if dset.startswith("synthetic"):
         return SyntheticDataLoader(task, **kwargs)
-    for prefix in ("LLC4320", "swot", "merra2"):
-        if dset.startswith(prefix):
-            raise NotImplementedError(
-                f"the {prefix} reader is not ported yet (ROADMAP Queue 1 item 2)")
+    if dset.startswith("merra2"):
+        raise NotImplementedError(
+            "the MERRA2 datapipe is not ported yet (ROADMAP Queue 1 item 11)")
     raise ValueError(f"No source loader for dataset '{dset}'")
 
 

@@ -1,6 +1,5 @@
 """Region → tiles loader base (counterpart of
-sres_tpu/data/region_loader.py), under the synthetic source here and the
-SWOT reader to come.
+sres_tpu/data/region_loader.py), under the synthetic and SWOT sources.
 
 Factors the reference SWOTRawDataLoader's tiling/normalization machinery
 (sres/base/source/swot/raw.py:147-233) out of the file-format specifics:
@@ -55,8 +54,10 @@ class RegionTileLoader:
 
     # -- region → tiles ---------------------------------------------------------
     def load_region_data(self, time_index: int, **kwargs) -> LArray:
-        """The raw (C, Y, X) region of a timestep, NaN holes included."""
-        raw = np.stack([self.load_region(v, time_index) for v in self.varnames], axis=0)
+        """The raw (C, Y, X) region of a timestep, NaN holes included; under
+        the loader's lock, as every ``load_region`` call is."""
+        with self._lock:
+            raw = np.stack([self.load_region(v, time_index) for v in self.varnames], axis=0)
         return LArray(raw, ["channels", "y", "x"], coords=dict(channels=list(self.varnames)))
 
     def get_tiles(self, raw_data: np.ndarray) -> LArray:

@@ -5,10 +5,13 @@ offline-testable source, SURVEY.md §4).
 Generates smooth multi-scale sinusoid fields with temporal drift and a static
 NaN "land" mask so the full NaN-tile-filtering / normalization / training
 pipeline runs without real SWOT data. The same seed gives the JAX package's
-fields bit for bit. ``write_swot_fixture`` waits for the SWOT reader.
+fields bit for bit. ``write_swot_fixture`` writes an on-disk dataset in the
+*real* SWOT binary format (mask template + big-endian shrunk files), the
+same bytes as ``sres_tpu``'s for the same arguments, for the SWOT reader.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -73,3 +76,26 @@ class SyntheticDataLoader(RegionTileLoader):
                 data[self.mask] = np.nan
             self._cache[key] = data.astype(np.float32)
         return self._cache[key]
+
+
+def write_swot_fixture(root: str, nx: int = 32, ntimes: int = 3,
+                       varnames=("SST",), seed: int = 7) -> Dict[str, str]:
+    """Write a SWOT-format dataset: ``meta/hFacC_k0.data`` mask template
+    (13*nx² big-endian f32) and per-(var,time) shrunk value files, mirroring
+    the real layout (reference: config/dataset/swot.yaml paths); nx=4320 is
+    the real LLC4320 grid."""
+    rng = np.random.default_rng(seed)
+    npts = 13 * nx * nx
+    # contiguous "land" block (first 10% of points) so most tiles stay NaN-free
+    template = np.ones(npts, ">f4")
+    template[: npts // 10] = 0.0
+    os.makedirs(f"{root}/meta", exist_ok=True)
+    template.tofile(f"{root}/meta/hFacC_k0.data")
+    nocean = int(np.count_nonzero(template))
+    for vn in varnames:
+        os.makedirs(f"{root}/raw/{vn}", exist_ok=True)
+        for t in range(ntimes):
+            vals = rng.normal(15.0, 2.0, nocean).astype(">f4")
+            vals.tofile(f"{root}/raw/{vn}/{vn}.000{t}.shrunk")
+    return dict(root=root, template="meta/hFacC_k0.data",
+                files="raw/${dataset.varname}/${dataset.varname}.000${dataset.index}.shrunk")

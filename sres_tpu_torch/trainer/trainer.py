@@ -12,8 +12,7 @@ Ragged batches (NaN-filtered tile counts vary per timeslice) are padded to
 the batch size with 0-weight tiles. One process drives one device: the JAX
 trainer's mesh, its multi-host seeding and ``pipeline.shard_map`` have no
 counterpart here, and ``pipeline.profile``, ``packed_opt``, ``mesh``,
-``shard_map`` and ``memory_debug`` are accepted with no effect; ``to_zarr``
-waits for ROADMAP Queue 1 item 5.
+``shard_map`` and ``memory_debug`` are accepted with no effect.
 
 Serving (counterpart of sres_tpu/trainer/trainer.py:592-1064):
 ``process_image`` runs a timeslice's tile batches through the eval step and
@@ -25,8 +24,10 @@ timeslices; ``infer_region_seamless`` runs haloed tiles, and
 denormalizes each target panel with its own variable's stats.
 
 ``timers`` holds the host's seconds by part (``load``: a timeslice's
-region → tiles, or the wait for its prefetch; ``assemble``: tile
-selection, normalization and flips; ``pad``; ``to_device``; ``dispatch``:
+region → tiles, or the wait for its prefetch, which the SWOT reader's own
+``timers`` split into the file read, decode, panel assembly and crop;
+``assemble``: tile selection, normalization and flips, and in the time
+domain the batch's file reads; ``pad``; ``to_device``; ``dispatch``:
 queuing the steps; ``metrics_to_host``; ``train``: the timeslices' walls;
 ``valid``, ``test``; serving: ``region_prep``, the host prep of a region
 timeslice, on the prefetch thread when streamed; ``region_to_device``;
@@ -72,6 +73,7 @@ from sres_tpu_torch.trainer.step import (build_accum_train_step, build_eval_step
                                          prepare_inputs, set_learning_rate)
 from sres_tpu_torch.util.larray import LArray
 from sres_tpu_torch.util.logging import lgm
+from sres_tpu_torch.util.zarrlite import ZarrWriter
 
 TimeType = Any
 
@@ -955,6 +957,27 @@ class ModelTrainer:
                             self.input_variables.index(vname)], ["y", "x"])
                 for k, v in panels.items()}
         return result
+
+    # ------------------------------------------------------------------ export
+    def to_zarr(self, **kwargs) -> str:
+        """Export the region dataset, every time index's raw (C, Y, X)
+        region, to a zarr store ``{platform.processed}/{name}.zarr`` (name:
+        the dataset's; reference: dual_trainer.py:374-394)."""
+        cfg().task["xyflip"] = False
+        ctimes = self.get_dset_time_indices()
+        name = kwargs.get("name", ConfigContext.defaults.get("dataset", "dataset"))
+        zstore = f"{cfg().platform.processed}/{name}.zarr"
+        writer: Optional[ZarrWriter] = None
+        for ctime in ctimes:
+            data = self.dataset.load_region_data(ctime).data[None]  # add time dim
+            if writer is None:
+                writer = ZarrWriter(zstore, data.shape[1:], np.float32,
+                                    dim_names=("time", "channels", "y", "x"))
+            writer.append(data)
+        if writer is not None:
+            writer.close()
+        lgm().log(f"Saved dataset {name} to zarr store {zstore}", display=True)
+        return zstore
 
 
 def _stats(attrs: Dict[str, Any]) -> Dict[str, np.ndarray]:

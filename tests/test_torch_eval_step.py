@@ -201,6 +201,17 @@ served = sres_tpu_torch.infer.main([
 sres_tpu_torch.config.ConfigContext.deactivate()
 import os
 nc_files = sorted(os.listdir(root + "/results/inference/synthetic/synthetic-tiles-48"))
+import sres_tpu_torch.native, sres_tpu_torch.data.swot, sres_tpu_torch.data.s3export
+import sres_tpu_torch.util.zarrlite, sres_tpu_torch.to_zarr
+from sres_tpu_torch.data.synthetic import write_swot_fixture
+write_swot_fixture(root + "/swot", nx=8, ntimes=2, varnames=("SSS", "SST"))
+store = sres_tpu_torch.to_zarr.main([
+    "--model", "rcan-10-10-64", "--task", "SSS_SST-tiles-48", "--dataset", "swot",
+    "--platform", "local", "--seed", "1", "platform.root=" + root, "pipeline.device=cpu",
+    "dataset.dataset_root=" + root + "/swot", "model.nfeatures=4", "model.nlayers=1",
+    "model.nblocks=1", "task.tile_size={x: 4, y: 4}"])
+sres_tpu_torch.config.ConfigContext.deactivate()
+zarr_shape = sres_tpu_torch.util.zarrlite.read_zarr(store).shape
 import shutil
 shutil.rmtree(root)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
@@ -212,7 +223,7 @@ print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
                       swin_keys=len(swin_sd), swin_out=swin_out,
                       swin16_out=swin16_out, t256_out=t256_out,
                       edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out,
-                      csv_rows=csv_rows, nc_files=nc_files)))
+                      csv_rows=csv_rows, nc_files=nc_files, zarr_shape=zarr_shape)))
 """
 
 
@@ -235,7 +246,9 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     one tiny epoch on the CPU through the launcher (config reader, data
     pipeline, trainer, checkpoints, loss CSV), and after serving that
     epoch's checkpoint through the inference launcher in every region mode
-    (one validation timestep: Tiles at 0, the image at 0)."""
+    (one validation timestep: Tiles at 0, the image at 0), and after the
+    zarr export launcher on a SWOT-format fixture (the compiled decoder,
+    the SWOT reader, the zarr writer)."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
     assert fresh_process["swin_keys"] == 25
@@ -247,6 +260,7 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     assert fresh_process["chain_out"] == [1, 4, 4, 4]
     assert fresh_process["csv_rows"] == ["train", "train", "valid", "test"]
     assert fresh_process["nc_files"] == ["SST-0.image.nc", "SST-0.tiles.nc"]
+    assert fresh_process["zarr_shape"] == [2, 2, 24, 32]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):
