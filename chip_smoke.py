@@ -195,7 +195,30 @@ Phases, one line each (every line carries the card's name and power limit):
    scripts/train/train-rcan-cape_basin.py's configuration on
    ``LLC4320`` (the time domain, b32): the CSV, the split, ``evaluate`` on
    the validation starts; (d) ``to_zarr.main`` of ``swot_20-20e`` read
-   back bit for bit against ``load_region_data``.
+   back bit for bit against ``load_region_data``;
+28. the model zoo: VDSR, DBPN, LatticeNet, ESRT, SRDN, UNet (4 temporal
+   features), LapSRN and MSCNN at their config/model YAMLs' widths, bf16
+   on SST-tiles-48's shapes; none of them runs a kernel of the port, and
+   every launch count stays 0 over the phase. Per model: (a) one seeded set
+   of weights on the card and the CPU, f32 and TF32 off: the forward of 2
+   tiles (every pyramid level), one train step's loss and BN running
+   statistics within 1e-4·max (SRDN 1e-3) and its gradients in the
+   envelope of an f64 CPU step (the card's distance from it within twice
+   the CPU's f32 distance + 1e-4·max, SRDN 1e-3), the bf16 forward
+   within the envelope, and a step on 72 tiles whose last 7 are
+   zero-weight padding against a step on the 65 valid ones (BN statistics
+   within 1e-5·max, the loss within 1e-5); (b) three requests of 72 HR
+   tiles through build_eval_step and three Adam steps (lr 1e-4) at batch 72
+   through build_train_step: ms, tiles/s, peak memory, FLOP from the
+   module shapes (``module_flops``) and TF/s, the idle share and a
+   device-time profile of one call; (c) ``train.main`` on the synthetic
+   task over a 1920² land-free region of 2 timeslices at batch 36 (3 steps,
+   the last batch 28 valid tiles), the CSV, the first step bit for bit
+   against build_train_step, the BN buffers through the checkpoint, then
+   ``infer_region`` of the best-validation checkpoint (100 slots) against
+   the f32 model in the envelope of the bf16 eval step.
+   ``python3 chip_smoke.py --only 28`` runs the toolchain phase and this
+   phase alone (a rehearsal; it prints no result line).
 
 Phase 9's profile of a step fails on a copy from the host to the card
 (the step's operands are on the card).
@@ -234,7 +257,8 @@ the serving and stash modes' times and bounds; ``ca_skip_bwd`` and
 ``modes`` and ``mode_bound_ms``; ``serve_launches`` over the three
 requests of phases 5, 12, 16, 20 and 23; ``region_launches`` over phase 26's
 served calls, the comparisons' and the profiled repeats' left out;
-``real_data_launches`` over phase 27's training runs and served calls; the
+``real_data_launches`` over phase 27's training runs and served calls;
+``zoo_launches`` over phase 28, which must be 0 for every kernel; the
 chain's over the one probe launch of phase 18), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
@@ -2474,6 +2498,7 @@ class _TrainerCapture:
     def __init__(self, profiled: int):
         self.profiled = profiled
         self.batches, self.first, self.first_metrics = [], None, None
+        self.ntemporal = 0
         self.slices, self.profile = [], None
 
     def __enter__(self):
@@ -2485,11 +2510,13 @@ class _TrainerCapture:
                                             ModelTrainer._train_timeslice)
         seen = self
 
-        def capture_step(tr, hr, weight):
+        def capture_step(tr, hr, weight, ctime=None):
             if seen.first is None:
                 seen.first = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
-            seen.batches.append((hr.copy(), weight.copy()))
-            met = run_step(tr, hr, weight)
+                seen.ntemporal = tr.step_config.ntemporal
+            t = tr._temporal_arg(ctime, hr.shape[0])
+            seen.batches.append((hr.copy(), weight.copy()) + (() if t is None else (t,)))
+            met = run_step(tr, hr, weight, ctime)
             if len(seen.batches) == 1:
                 seen.first_metrics = {k: v.detach().clone() for k, v in met.items()}
             return met
@@ -2542,13 +2569,15 @@ class _TrainerCapture:
         from sres_tpu_torch.models import build_model
         from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step,
                                                  make_step_config)
+        from sres_tpu_torch.models.layers import has_batch_norm
         nin, nout = len(task["input_variables"]), len(task["target_variables"])
-        model = build_model(model_cfg, nin, nout, "bf16", device="cuda")
+        ntf = self.ntemporal
+        model = build_model(model_cfg, nin, nout, "bf16", device="cuda",
+                            temporal_features=ntf or None)
         model.load_state_dict(self.first)
         step = build_train_step(model, build_optimizer(model, task),
-                                make_step_config(task, model_cfg))
-        staged = [(torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev))
-                  for h, w in self.batches]
+                                make_step_config(task, model_cfg, has_batch_norm(model), ntf))
+        staged = [tuple(torch.from_numpy(a).to(dev) for a in b) for b in self.batches]
         met = step(*staged[0])
         same = all(torch.equal(met[k], self.first_metrics[k]) for k in met)
         say(f"{label} first step vs build_train_step",
@@ -3326,10 +3355,402 @@ def phase_real_data(dev, tmp):
     return launches
 
 
+# ------------------------------------------------------------- 28 the zoo
+# config/model/<name>.yaml as written (tests/test_torch_eval_step.py holds
+# each copy to its file); the UNet with 4 temporal features, the width of
+# the trainer's sin/cos day and year rows
+ZOO_CFGS = {
+    "vdsr": dict(name="vdsr", nfeatures=64, nlayers=4, loss_fn="l2", kernel_size=3,
+                 res_scale=1.0, downscale_factors=[2, 2], ups_mode="bicubic"),
+    "dbpn": dict(name="dbpn", nfeatures=128, depth=3, nprojectionfeatures=32, loss_fn="l2",
+                 downscale_factors=[2, 2], ups_mode="bicubic"),
+    "latticenet": dict(name="latticenet", nfeatures=64, ndiff=16, loss_fn="l2",
+                       kernel_size=3, bias=True, downscale_factors=[2, 2],
+                       ups_mode="bicubic"),
+    "esrt": dict(name="esrt", nfeatures=32, nlayers=1, loss_fn="l2", kernel_size=3,
+                 downscale_factors=[2, 2], ups_mode="bicubic"),
+    "srdn": dict(name="srdn", nfeatures={"hidden": 64, "upscale": 128}, nlayers=16,
+                 usmethod="replicate", loss_fn="l2",
+                 kernel_size={"features": 3, "hidden": 3, "output": 9},
+                 downscale_factors=[2, 2], ups_mode="bicubic"),
+    "unet": dict(name="unet", nfeatures=64, nlayers=4, loss_fn="l2",
+                 use_temporal_features=True, downscale_factors=[2, 2], ups_mode="bicubic"),
+    "lapsrn": dict(name="lapsrn", nfeatures=128, loss_fn="l2", multiscale_loss=True,
+                   downscale_factors=[2, 2], ups_mode="bicubic"),
+    "mscnn": dict(name="mscnn", nfeatures=64, nlayers=4, loss_fn="l2", multiscale_loss=True,
+                  downscale_factors=[2, 2], ups_mode="bicubic"),
+}
+ZOO_NTF, ZOO_TILES, ZOO_PAD = 4, 2, 7
+# 28c: the launcher on a 1920² land-free region (100 HR tiles of 192²) of 2
+# timeslices, one trained and one validated, at the task's batch 36: an
+# epoch is 3 steps and its last batch holds 28 tiles of 36
+ZOO_LAUNCH = ["--task", "synthetic-tiles-48", "--dataset", "synthetic", "--platform",
+              "local", "--seed", "42", "dataset.image_size={y: 1920, x: 1920}",
+              "dataset.ntimes=2", "dataset.nan_fraction=0.0",
+              "task.ttsplit={train: 0.5, valid: 0.5, test: 0.0}", "task.nepochs=1"]
+ZOO_CUTS = ("1920² land-free region (dataset.nan_fraction=0), 2 timeslices "
+            "(split 0.5 / 0.5 / 0), batch 36: 3 steps, the last 28 of 36 valid")
+
+
+def module_flops(model, *args) -> float:
+    """Forward FLOP of ``model(*args)`` in its convs, transposed convs and
+    linear layers (2 per multiply-add), counted from the shapes a forward
+    hands them; ESRT's attention products are not counted."""
+    import torch
+    import torch.nn as nn
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        k = math.prod(getattr(mod, "kernel_size", (1,)))
+        if isinstance(mod, nn.ConvTranspose2d):
+            total[0] += 2.0 * inp[0].numel() * mod.out_channels * k / mod.groups
+        elif isinstance(mod, nn.Conv2d):
+            total[0] += 2.0 * out.numel() * mod.in_channels * k / mod.groups
+        else:
+            total[0] += 2.0 * out.numel() * mod.in_features
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _levels(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _rel_levels(a, ref) -> float:
+    return max(rel_err(x.cpu(), y.cpu()) for x, y in zip(_levels(a), _levels(ref)))
+
+
+def _bn_stats(model):
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _zoo_correct(name, cfg, dev, seed, ntf):
+    """28a: the same seeded weights on the card and the CPU in f32 (TF32
+    off): the forward on ZOO_TILES tiles, one train step's loss, gradients
+    and BN running statistics; the bf16 envelope; and one step on a batch
+    of 72 with its last ZOO_PAD tiles zero-weight, held to a step on the
+    65 valid tiles alone."""
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import has_batch_norm
+    from sres_tpu_torch.models.temporal import get_temporal_features
+    from sres_tpu_torch.trainer.step import (build_optimizer, build_train_step, forward,
+                                             make_step_config, prepare_inputs)
+    tol = 1e-3 if name == "srdn" else 1e-4
+    rng = np.random.default_rng(seed + 28)
+    feats = get_temporal_features(np.arange(8.0))
+    row = lambda n: torch.from_numpy(np.repeat(feats[3:4], n, 0)) if ntf else None
+    models = {}
+    for where, prec in (("card", "f32"), ("cpu", "f32"), ("card", "bf16"), ("cpu", "bf16")):
+        m = build_model(cfg, 1, 1, prec, seed=seed, device=dev if where == "card" else "cpu",
+                        temporal_features=ntf or None)
+        models[where, prec] = m
+    sd = models["card", "f32"].state_dict()
+    for key, m in models.items():
+        if key != ("card", "f32"):
+            m.load_state_dict(sd)
+    sc = make_step_config(TRAIN_TASK, cfg, has_batch_norm(models["card", "f32"]), ntf)
+    hr = torch.from_numpy(smooth_fields(rng, ZOO_TILES, HR))
+    outs = {}
+    for (where, prec), m in models.items():
+        d = dev if where == "card" else torch.device("cpu")
+        lr = prepare_inputs(hr.to(d), sc)[0]
+        m.eval()
+        with torch.no_grad():
+            t = row(ZOO_TILES)
+            outs[where, prec] = tuple(o.float().cpu() for o in _levels(
+                forward(m, lr, sc, temporal=None if t is None else t.to(d))))
+    f32_fwd = _rel_levels(outs["card", "f32"], outs["cpu", "f32"])
+    e_card = _rel_levels(outs["card", "bf16"], outs["card", "f32"])
+    e_cpu = _rel_levels(outs["cpu", "bf16"], outs["cpu", "f32"])
+
+    # one f32 train step on each, and on the CPU in f64 (the model's convs
+    # and BatchNorm in f64 between its f32 input and output): loss,
+    # gradients, BN running statistics
+    ref = build_model(cfg, 1, 1, "f32", device="cpu", temporal_features=ntf or None)
+    ref.load_state_dict(sd)
+    ref.dtype = torch.float64
+    models["ref", "f64"] = ref.double()
+    res = {}
+    for where, prec in (("card", "f32"), ("cpu", "f32"), ("ref", "f64")):
+        m = models[where, prec]
+        d = dev if where == "card" else torch.device("cpu")
+        step = build_train_step(m, build_optimizer(m, TRAIN_TASK), sc)
+        t = row(ZOO_TILES)
+        met = step(hr.to(d), torch.ones(ZOO_TILES, device=d),
+                   *(() if t is None else (t.to(d),)))
+        # (ESRT's unused Scale gets no gradient)
+        grads = {k: p.grad.detach().float().cpu() for k, p in m.named_parameters()
+                 if p.grad is not None}
+        res[where] = (float(met["mloss"]), grads, _bn_stats(m))
+    (l_k, g_k, s_k), (l_c, g_c, s_c), (_, g_r, _) = res["card"], res["cpu"], res["ref"]
+    if not set(g_k) == set(g_c) == set(g_r):
+        raise CheckFailed(f"28a {name}: gradients of {sorted(set(g_k) ^ set(g_c))} on one side")
+    # gradients against the model's largest: the card's f32 against the
+    # CPU's, and each against the f64 reference; the gate is the envelope,
+    # the card's distance from f64 within twice the CPU's f32 noise + tol
+    # (a BatchNorm over few values, as UNet's 3×3 bottleneck at 2 tiles,
+    # leaves the CPU's own f32 gradients ~1.4e-4·max from f64)
+    gscale = max(float(g.abs().max()) for g in g_r.values())
+    gdist = lambda a, b: max(float((a[k] - b[k]).abs().max()) for k in g_r) / gscale
+    g_err, g_card64, g_cpu64 = gdist(g_k, g_c), gdist(g_k, g_r), gdist(g_c, g_r)
+    s_err = max([float((s_k[k] - s_c[k]).abs().max() / s_c[k].abs().max()) for k in s_c],
+                default=0.0)
+    loss_err = abs(l_k - l_c) / abs(l_c)
+    del models
+
+    # padded batch: 72 with the last ZOO_PAD zero-weight (zero tiles, as the
+    # trainer pads) against the 65 valid tiles alone, f32 on the card
+    hr72 = torch.from_numpy(smooth_fields(rng, BATCH, HR))
+    hr72[BATCH - ZOO_PAD:] = 0.0
+    w72 = torch.ones(BATCH)
+    w72[BATCH - ZOO_PAD:] = 0.0
+    padded = {}
+    for tag, (h, w) in (("padded", (hr72, w72)),
+                        ("valid", (hr72[:BATCH - ZOO_PAD], w72[:BATCH - ZOO_PAD]))):
+        m = build_model(cfg, 1, 1, "f32", device=dev, temporal_features=ntf or None)
+        m.load_state_dict(sd)
+        step = build_train_step(m, build_optimizer(m, TRAIN_TASK), sc)
+        t = row(h.shape[0])
+        met = step(h.to(dev), w.to(dev), *(() if t is None else (t.to(dev),)))
+        padded[tag] = (float(met["sloss"]), _bn_stats(m))
+        del m, step
+    (sl_p, st_p), (sl_v, st_v) = padded["padded"], padded["valid"]
+    pad_err = max([float((st_p[k] - st_v[k]).abs().max() / st_v[k].abs().max()) for k in st_v],
+                  default=0.0)
+    line = dict(model=name, tiles=ZOO_TILES, f32_forward_rel=f32_fwd, f32_step_loss_rel=loss_err,
+                f32_grad_rel=g_err, f32_grad_card_vs_f64=g_card64,
+                f32_grad_cpu_vs_f64=g_cpu64, f32_grad_bound=2 * g_cpu64 + tol,
+                f32_bn_stats_rel=s_err, f32_tol=tol,
+                bf16_card_rel=e_card, bf16_cpu_rel=e_cpu, bf16_bound=2 * e_cpu + 1e-4,
+                padded_bn_stats_rel=pad_err, padded_bn_tol=1e-5, bn_buffers=len(st_v),
+                padded_sloss=sl_p, valid_sloss=sl_v)
+    say(f"28a {name} correctness", **line)
+    ok = (max(f32_fwd, loss_err, s_err) <= tol and g_card64 <= 2 * g_cpu64 + tol
+          and e_card <= 2 * e_cpu + 1e-4
+          and pad_err <= 1e-5 and abs(sl_p - sl_v) <= 1e-5 * abs(sl_v)
+          and math.isfinite(l_k))
+    if not ok:
+        raise CheckFailed(f"28a {name}: {line}")
+    return sd
+
+
+def _zoo_busy(fn):
+    """One call of ``fn`` under torch.profiler between 64 + 64 marker
+    kernels (``one_kernel``'s remedy: late in the script a capture loses
+    its first device records): (device-busy ms, kernel rows), the markers
+    left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(1)
+        fn()
+        for _ in range(64):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and "spin_kernel" not in e.key]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+def _zoo_timed(fn, n=NSTEP):
+    """One warm-up call, then ``n`` calls timed one by one with CUDA
+    events: their ms and the median."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    return statistics.median(ms), ms
+
+
+def _zoo_served_trained(name, cfg, dev, seed, ntf, sd):
+    """28b: bf16, three requests of 72 HR tiles through build_eval_step and
+    three Adam steps (lr 1e-4) at batch 72 through build_train_step: ms,
+    tiles/s, peak memory, FLOP and TF/s, the idle share and a device-time
+    profile of one call each."""
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import has_batch_norm
+    from sres_tpu_torch.models.temporal import get_temporal_features
+    from sres_tpu_torch.trainer.step import (build_eval_step, build_optimizer,
+                                             build_train_step, make_step_config,
+                                             prepare_inputs)
+    m = build_model(cfg, 1, 1, "bf16", device=dev, temporal_features=ntf or None)
+    m.load_state_dict(sd)
+    sc = make_step_config(TRAIN_TASK, cfg, has_batch_norm(m), ntf)
+    rng = np.random.default_rng(seed + 128)
+    reqs = [torch.from_numpy(smooth_fields(rng, BATCH, HR)).to(dev) for _ in range(NREQ)]
+    weight = torch.ones(BATCH, device=dev)
+    extra = ((torch.from_numpy(np.repeat(get_temporal_features(np.arange(8.0))[3:4], BATCH, 0))
+              .to(dev),) if ntf else ())
+    lr0 = prepare_inputs(reqs[0], sc)[0]
+    m.eval()
+    fwd = module_flops(m, lr0.to(torch.bfloat16), *extra)
+    out = {}
+    for kind in ("serve", "train"):
+        if kind == "serve":
+            call = build_eval_step(m, sc)
+            flops = fwd
+        else:
+            call = build_train_step(m, build_optimizer(m, TRAIN_TASK), sc)
+            flops = 3.0 * fwd           # forward, the input and weight gradients
+        i = [0]
+
+        def run():
+            r = call(reqs[i[0] % NREQ], weight, *extra)
+            i[0] += 1
+            return r
+        torch.cuda.reset_peak_memory_stats(dev)
+        med, ms = _zoo_timed(run)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        busy, rows = _zoo_busy(run)
+        res = dict(ms=med, ms_calls=ms, tiles_per_s=BATCH / (med / 1e3),
+                   gflop=flops / 1e9, tflop_s=flops / (med / 1e3) / 1e12,
+                   peak_mem_gb=peak, device_ms=busy,
+                   device_idle_pct=100.0 * (1 - busy / med),
+                   top=[dict(kernel=k[:70], ms=v, calls=n) for k, v, n in rows[:6]])
+        say(f"28b {name} {kind}", batch=BATCH, gflop_per_tile_forward=fwd / BATCH / 1e9, **res)
+        out[kind] = res
+        if kind == "serve":
+            met = run()[0]
+            if not all(math.isfinite(float(v)) for v in met.values()):
+                raise CheckFailed(f"28b {name}: non-finite served metrics {met}")
+        else:
+            losses = [float(run()["mloss"]) for _ in range(NSTEP)]
+            if not all(math.isfinite(v) for v in losses):
+                raise CheckFailed(f"28b {name}: non-finite losses {losses}")
+        del call
+    return out
+
+
+def _zoo_launcher(name, cfg, dev, root, ntf):
+    """28c: ``train.main`` on the synthetic task (one epoch, ZOO_CUTS), the
+    first step against build_train_step bit for bit, the CSV, the BN
+    buffers through the checkpoint, then ``infer_region`` of the
+    best-validation checkpoint held against f32 in the bf16 envelope."""
+    import torch
+    from sres_tpu_torch.config import ConfigContext
+    from sres_tpu_torch.data.inference_io import TSet
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.ops.assemble import assemble_tiles
+    from sres_tpu_torch.train import main as train_main
+    from sres_tpu_torch.trainer.checkpoints import read_checkpoint
+    from sres_tpu_torch.trainer.step import build_eval_step
+    over = [f"platform.root={root / name}"]
+    t0 = time.perf_counter()
+    with _TrainerCapture(profiled=-1) as seen:
+        ctl = train_main(["--model", name] + ZOO_LAUNCH + over)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = ctl.trainer
+    rows = _csv_rows(tr)
+    _check_rows(f"28c {name}", rows, 2)
+    nvalid = [int(b[1].sum()) for b in seen.batches]
+    if nvalid != [36, 36, 28] or tr.step_config.ntemporal != ntf:
+        raise CheckFailed(f"28c {name}: batches {nvalid}, ntemporal {tr.step_config.ntemporal}")
+    ckpts = root / name / "results/checkpoints"
+    (train_ck,) = ckpts.glob("*.train.ckpt")
+    saved = read_checkpoint(str(train_ck))["model"]
+    trained = tr.model.state_dict()
+    buffers = [k for k in trained if "running_" in k or "num_batches" in k]
+    same_buffers = all(torch.equal(saved[k], trained[k].cpu()) for k in buffers)
+    first = seen.first_step(f"28c {name}", dev, cfg, TRAIN_TASK)
+    del first, seen
+    if not same_buffers:
+        raise CheckFailed(f"28c {name}: the checkpoint's BN buffers differ from the model's")
+
+    # infer_region of the best-validation checkpoint, held against f32
+    with ConfigContext("sres", model=name, **REGION_GROUPS,
+                       **_launch_overrides(ZOO_LAUNCH + over)):
+        cv = tr.data_timestamps[TSet.Validation][0]
+        t1 = time.perf_counter()
+        served = tr.infer_region(cv, update_model=True)["SST"]["model"].data
+        torch.cuda.synchronize()
+        region_s = time.perf_counter() - t1
+        m32 = build_model(cfg, 1, 1, "f32", device=dev, temporal_features=ntf or None)
+        m32.load_state_dict(tr.model.state_dict())
+        with _Serving(tr, m32):
+            ref = tr.infer_region(cv, update_model=False)["SST"]["model"].data
+        prep = tr._prepare_region_inputs(cv)
+        gs = prep[1]
+        hr, w, ids, scale, offset, *t = [a.to(dev) for a in prep[2:]]
+        _, (lr, out, _, _) = build_eval_step(tr.model, tr.step_config)(hr, w, *t)
+        step_panel = assemble_tiles((out * scale + offset)[:, 0], ids, gs, w).cpu().numpy()
+        del m32
+    e_region, e_step = _panel_err(served, ref), _panel_err(step_panel, ref)
+    line = dict(model=name, cuts=ZOO_CUTS, wall_s=wall, steps=tr.timers["steps"],
+                valid_tiles=nvalid, rows=rows, bn_buffers=len(buffers),
+                checkpoint_bn_buffers_bit_equal=same_buffers, region_s=region_s,
+                slots=int(gs["x"] * gs["y"]), bf16_region_rel=e_region,
+                bf16_eval_step_rel=e_step, bound=2 * e_step + 1e-4)
+    say(f"28c {name} launcher and region", **line)
+    if not (e_region <= 2 * e_step + 1e-4 and np.isfinite(served).all()):
+        raise CheckFailed(f"28c {name}: {line}")
+    ConfigContext.deactivate()
+    del ctl, tr
+
+
+def _launch_overrides(args):
+    """The dot-key overrides among launcher arguments, parsed as the
+    launcher parses them."""
+    from sres_tpu_torch.train import parse_overrides
+    return parse_overrides([a for a in args if "=" in a and not a.startswith("-")])
+
+
+def phase_zoo(dev, seed, root):
+    """Phase 28: the eight zoo models of config/model at their published
+    widths, bf16 on SST-tiles-48's shapes (48×48 LR, 1×192×192 HR): 28a
+    correctness, 28b served and trained, 28c through the launcher and
+    ``infer_region``; no kernel of the port launches."""
+    _reset_all_launches()
+    t0 = time.perf_counter()
+    summary = {}
+    for name, cfg in ZOO_CFGS.items():
+        ntf = ZOO_NTF if cfg.get("use_temporal_features") else 0
+        t_model = time.perf_counter()
+        sd = _zoo_correct(name, cfg, dev, seed, ntf)
+        summary[name] = _zoo_served_trained(name, cfg, dev, seed, ntf, sd)
+        del sd
+        _zoo_launcher(name, cfg, dev, root, ntf)
+        summary[name]["s"] = time.perf_counter() - t_model
+    launches = {k: v for k, v in _all_launches().items() if v}
+    say("28 zoo summary", card=CARD, phase_s=time.perf_counter() - t0, kernel_launches=launches,
+        **{f"{k}_{kind}_{m}": v[kind][m] for k, v in summary.items()
+           for kind in ("serve", "train") for m in ("ms", "tiles_per_s", "tflop_s",
+                                                    "peak_mem_gb", "device_idle_pct")},
+        **{f"{k}_s": v["s"] for k, v in summary.items()})
+    if launches:
+        raise CheckFailed(f"28: the zoo launched the port's kernels: {launches}")
+    return dict.fromkeys(_all_launches(), 0)
+
+
 def main() -> int:
     global CARD, T0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", type=int, choices=[28], default=None,
+                    help="run the toolchain phase and this phase alone, and print no "
+                         "result line (a rehearsal of one phase)")
     args = ap.parse_args()
 
     import torch
@@ -3353,6 +3774,14 @@ def main() -> int:
 
     t_all = T0 = time.perf_counter()
     build_s = phase_toolchain()
+    if args.only == 28:
+        root = Path(tempfile.mkdtemp(prefix="sres_zoo_"))
+        try:
+            phase_zoo(dev, args.seed, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
+        return 0
     kern = {"wino_conv": phase_conv(dev, rng), "ca_skip": phase_ca(dev, rng)}
     phase_group(dev, args.seed)
     serve_launches = phase_slice(dev, args.seed)
@@ -3393,6 +3822,11 @@ def main() -> int:
         real_data_launches = phase_real_data(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    root = Path(tempfile.mkdtemp(prefix="sres_zoo_"))
+    try:
+        zoo_launches = phase_zoo(dev, args.seed, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -3425,7 +3859,8 @@ def main() -> int:
              launches=launches[k], serve_launches=serve_launches.get(k, 0),
              trainer_launches=trainer_launches.get(k, 0),
              region_launches=region_launches.get(k, 0),
-             real_data_launches=real_data_launches.get(k, 0), **kern[k],
+             real_data_launches=real_data_launches.get(k, 0),
+             zoo_launches=zoo_launches.get(k, 0), **kern[k],
              **cuda_kernels.get(k, {}))
         for k in where]}))
     print(f"card: {CARD}")

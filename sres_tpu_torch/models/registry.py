@@ -1,6 +1,7 @@
 """Model factory (counterpart of sres_tpu/models/registry.py): model config
-→ ``nn.Module``. ``rcan``, ``swinir`` and ``edsr`` are ported; every other
-name raises.
+→ ``nn.Module``, for all eleven names of the JAX registry (rcan, edsr,
+vdsr, lapsrn, mscnn, srdn, unet, dbpn, latticenet, esrt, swinir); any
+other name raises ``KeyError`` naming them.
 
 ``build_model`` returns an f32-parameter module on ``device`` (the card by
 default; ``device="cpu"`` only when asked, and an error when the card is
@@ -43,20 +44,32 @@ def resolve_parms(model_cfg: Mapping, extra_defaults: Optional[Dict[str, Any]] =
     return parms
 
 
+def model_names() -> Dict[str, Any]:
+    from sres_tpu_torch.models import (dbpn, edsr, esrt, lapsrn, latticenet, mscnn,
+                                       rcan, srdn, swinir, unet, vdsr)
+    return {
+        "rcan": rcan.build, "edsr": edsr.build, "vdsr": vdsr.build,
+        "lapsrn": lapsrn.build, "mscnn": mscnn.build, "srdn": srdn.build,
+        "unet": unet.build, "dbpn": dbpn.build, "latticenet": latticenet.build,
+        "esrt": esrt.build, "swinir": swinir.build,
+    }
+
+
 def build_model(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
                 precision: str = "bf16", seed: Optional[int] = None,
-                device: str = "cuda"):
+                device: str = "cuda", temporal_features=None):
+    """``temporal_features`` (the dataset's (T, n) features, or n) sizes a
+    UNet's bottleneck reservation when ``use_temporal_features`` is set;
+    every other model ignores it, as in JAX."""
     dev = resolve_device(device)
     name = model_cfg["name"]
-    from sres_tpu_torch.models import edsr, rcan, swinir
     from sres_tpu_torch.models.layers import init_torch_default
-    builders = {"rcan": rcan.build, "swinir": swinir.build, "edsr": edsr.build}
+    builders = model_names()
     if name not in builders:
-        raise NotImplementedError(
-            f"model '{name}' is not ported yet (ROADMAP Queue 1 item 8); "
-            f"available: {sorted(builders)}")
+        raise KeyError(f"Unknown model '{name}'; available: {sorted(builders)}")
+    kw = {"temporal_features": temporal_features} if name == "unet" else {}
     model = builders[name](model_cfg, nchannels_in, nchannels_out,
-                           dtype=compute_dtype(precision))
+                           dtype=compute_dtype(precision), **kw)
     if seed is not None:
         init_torch_default(model, seed)
     return model.to(dev)

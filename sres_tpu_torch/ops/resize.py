@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,7 +86,7 @@ def _out_size(in_size: int, scale: float) -> int:
 
 @lru_cache(maxsize=256)
 def device_matrix(in_size: int, out_size: int, mode: str, scale: Optional[float],
-                  device: torch.device) -> torch.Tensor:
+                  device: torch.device, align_corners: bool = False) -> torch.Tensor:
     """``resize_matrix`` as an f32 tensor on ``device``, made once per (in
     size, out size, mode, scale, device) and kept: a step then makes no
     copy from pageable host memory, which would wait for the stream's
@@ -94,15 +94,17 @@ def device_matrix(in_size: int, out_size: int, mode: str, scale: Optional[float]
     baseline). Made outside inference mode, so that a matrix first made
     while serving also serves training."""
     with torch.inference_mode(False):
-        return torch.from_numpy(resize_matrix(in_size, out_size, mode, scale)).to(device)
+        return torch.from_numpy(resize_matrix(in_size, out_size, mode, scale,
+                                              align_corners)).to(device)
 
 
 def resize(x: torch.Tensor, out_hw: Tuple[int, int], mode: str = "bicubic",
-           scale: Optional[float] = None) -> torch.Tensor:
-    """Resize (..., H, W) ``x`` to ``out_hw``; computed and returned in f32."""
+           scale: Optional[float] = None, align_corners: bool = False) -> torch.Tensor:
+    """Resize (..., H, W) ``x`` to ``out_hw``; computed and returned in f32.
+    ``align_corners`` as torch's (ESRT's bilinear resizes)."""
     h_in, w_in = x.shape[-2], x.shape[-1]
-    mh = device_matrix(h_in, out_hw[0], mode, scale, x.device)
-    mw = device_matrix(w_in, out_hw[1], mode, scale, x.device)
+    mh = device_matrix(h_in, out_hw[0], mode, scale, x.device, align_corners)
+    mw = device_matrix(w_in, out_hw[1], mode, scale, x.device, align_corners)
     return torch.matmul(torch.matmul(mh, x.float()), mw.T)
 
 
@@ -121,3 +123,15 @@ def upsample(x: torch.Tensor, scale_factor: float,
     out_hw = (_out_size(x.shape[-2], scale_factor),
               _out_size(x.shape[-1], scale_factor))
     return resize(x, out_hw, mode, scale=float(scale_factor))
+
+
+def multiscale_targets(hr: torch.Tensor, downscale_factors: Sequence[int],
+                       mode: str = "bilinear") -> List[torch.Tensor]:
+    """Per-level targets of a pyramid model (LapSRN, MSCNN): the HR shrunk
+    by each level's factor, lowest level first (sres_tpu/ops/resize.py
+    :143-150)."""
+    targets = [hr]
+    for usf in list(downscale_factors)[:-1]:
+        targets.append(downsample(targets[-1], float(usf), mode))
+    targets.reverse()
+    return targets

@@ -45,8 +45,9 @@ def main() -> int:
         raise SystemExit("hostcopy_ab needs a CUDA card")
     dev = torch.device("cuda")
     kept = (resize.device_matrix, winograd.device_g)
-    copied = (lambda i, o, mode, scale, device:
-              torch.from_numpy(resize.resize_matrix(i, o, mode, scale)).to(device),
+    copied = (lambda i, o, mode, scale, device, align_corners=False:
+              torch.from_numpy(resize.resize_matrix(i, o, mode, scale,
+                                                    align_corners)).to(device),
               lambda m, device: torch.from_numpy(winograd.MATS[m][1]).to(device))
 
     def use(mode):

@@ -7,7 +7,7 @@ tiles contribute nothing.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -47,16 +47,24 @@ def single_product_loss(prd: torch.Tensor, tar: torch.Tensor,
     raise ValueError(f"Unknown loss_fn {loss_fn}")
 
 
-def sr_loss(product: torch.Tensor, target: torch.Tensor, weight: torch.Tensor,
+def sr_loss(products: Union[torch.Tensor, Sequence[torch.Tensor]],
+            targets: Union[torch.Tensor, List[torch.Tensor]], weight: torch.Tensor,
             loss_fn: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sloss, mloss) for a single-product model (the two are equal).
-    Pyramid (multi-product) models are not ported yet (ROADMAP Queue 1
-    item 8)."""
-    if not isinstance(product, torch.Tensor):
-        raise NotImplementedError("multiscale products are not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
-    sloss = single_product_loss(product, target, weight, loss_fn)
-    return sloss, sloss
+    """(sloss, mloss): ``sloss`` is the final level's loss, ``mloss`` the
+    training objective. For one product the two are equal; for a pyramid
+    (one product a level, lowest first) ``mloss`` is the sum of every
+    level's loss against its target (sres_tpu/trainer/losses.py:58-73;
+    reference dual_trainer.py:221-234)."""
+    if isinstance(products, torch.Tensor):
+        sloss = single_product_loss(products, targets, weight, loss_fn)
+        return sloss, sloss
+    level_targets = targets if isinstance(targets, (list, tuple)) else [targets]
+    sloss = single_product_loss(products[-1], level_targets[-1], weight, loss_fn)
+    mloss = None
+    for out, tar in zip(products, level_targets):
+        ll = single_product_loss(out, tar, weight, loss_fn)
+        mloss = ll if mloss is None else mloss + ll
+    return sloss, mloss
 
 
 def psnr(rmse: Union[float, torch.Tensor],

@@ -8,15 +8,25 @@ the train step also backpropagates the loss and takes one optimizer step,
 updating the parameters in place (the JAX step donates its state).
 Everything stays NCHW: the JAX step's NCHW→NHWC transpose is a TPU layout
 cost and is not carried over.
+
+Models with BatchNorm (``StepConfig.has_bn``) run in training mode in every
+train step, with the batch's weights scoped by ``bn_sample_weight`` so that
+padding tiles stay out of the statistics, and in eval mode in the eval
+step (sres_tpu/trainer/step.py:79-97). Temporal models (``ntemporal`` > 0)
+take a (B, ntemporal) features argument after the weights. A pyramid
+model's tuple of levels is scored level by level against
+``multiscale_targets`` (``mloss``, the objective, their sum; ``sloss`` the
+final level's), and the eval step returns the final level.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Mapping, NamedTuple, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
-from sres_tpu_torch.ops.resize import downsample, interp_mode, upsample
+from sres_tpu_torch.models.layers import bn_sample_weight
+from sres_tpu_torch.ops.resize import downsample, interp_mode, multiscale_targets, upsample
 from sres_tpu_torch.trainer.losses import sr_loss
 
 
@@ -75,36 +85,56 @@ def interp_baseline(lr: torch.Tensor, sc: StepConfig) -> torch.Tensor:
     return _select(upsample(lr, float(sc.scale), sc.up_mode), sc)
 
 
-def build_eval_step(model: torch.nn.Module, sc: StepConfig) -> Callable:
-    """Returns eval_step(hr_nchw, weight) -> (metrics, (lr, out, target,
-    interp)): metrics holds 0-d f32 tensors ``mloss``, ``sloss`` and
-    ``interp_sloss``; the four outputs are NCHW f32. Runs under
-    ``torch.inference_mode`` with the model in eval mode."""
-    _check_ported(sc)
+def forward(model: torch.nn.Module, lr: torch.Tensor, sc: StepConfig,
+            weight: Optional[torch.Tensor] = None,
+            temporal: Optional[torch.Tensor] = None):
+    """The model on an LR batch, with its temporal features when it takes
+    them; a BatchNorm model in training mode sees ``weight`` scoped, so its
+    statistics count the tiles of weight 1 only."""
+    args = (lr, temporal) if sc.ntemporal > 0 else (lr,)
+    if sc.has_bn and model.training:
+        with bn_sample_weight(weight):
+            return model(*args)
+    return model(*args)
 
-    def eval_step(hr: torch.Tensor, weight: torch.Tensor
+
+def final_level(out):
+    """A pyramid model's final level; a single product as it is."""
+    return out[-1] if isinstance(out, tuple) else out
+
+
+def _losses(out, target, weight, sc: StepConfig):
+    if isinstance(out, tuple):
+        targets = multiscale_targets(target, sc.downscale_factors, "bilinear")
+        return sr_loss(list(out), targets, weight, sc.loss_fn)
+    return sr_loss(out, target, weight, sc.loss_fn)
+
+
+def build_eval_step(model: torch.nn.Module, sc: StepConfig) -> Callable:
+    """Returns eval_step(hr_nchw, weight[, temporal]) -> (metrics, (lr,
+    out, target, interp)): metrics holds 0-d f32 tensors ``mloss``,
+    ``sloss`` and ``interp_sloss``; the four outputs are NCHW f32 (``out``
+    a pyramid's final level). Runs under ``torch.inference_mode`` with the
+    model in eval mode."""
+
+    def eval_step(hr: torch.Tensor, weight: torch.Tensor,
+                  temporal: Optional[torch.Tensor] = None
                   ) -> Tuple[Dict[str, torch.Tensor], Tuple[torch.Tensor, ...]]:
         model.eval()
         with torch.inference_mode():
             lr, target = prepare_inputs(hr, sc)
-            out = model(lr)
-            sloss, mloss = sr_loss(out, target, weight, sc.loss_fn)
+            out = forward(model, lr, sc, temporal=temporal)
+            sloss, mloss = _losses(out, target, weight, sc)
             interp = interp_baseline(lr, sc)
             interp_sloss, _ = sr_loss(interp, target, weight, sc.loss_fn)
             metrics = dict(mloss=mloss, sloss=sloss, interp_sloss=interp_sloss)
-            return metrics, (lr, out, target, interp)
+            return metrics, (lr, final_level(out), target, interp)
 
     return eval_step
 
 
 def _param_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
-
-
-def _check_ported(sc: StepConfig) -> None:
-    if sc.has_bn or sc.ntemporal:
-        raise NotImplementedError("BatchNorm and temporal-feature models are "
-                                  "not ported yet (ROADMAP Queue 1 item 8)")
 
 
 def _metrics(mloss, sloss, lr, target, weight, sc: StepConfig
@@ -117,29 +147,29 @@ def _metrics(mloss, sloss, lr, target, weight, sc: StepConfig
                 interp_sloss=interp_sloss)
 
 
-def _backward(model, hr, weight, sc: StepConfig):
+def _backward(model, hr, weight, sc: StepConfig, temporal=None):
     """Forward and backward of one batch's masked loss into ``.grad``."""
     lr, target = prepare_inputs(hr, sc)
-    sloss, mloss = sr_loss(model(lr), target, weight, sc.loss_fn)
+    sloss, mloss = _losses(forward(model, lr, sc, weight, temporal), target, weight, sc)
     mloss.backward()
     return mloss, sloss, lr, target
 
 
 def build_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                      sc: StepConfig) -> Callable:
-    """Returns train_step(hr_nchw, weight) -> metrics: one Adam step on the
-    masked loss (``mloss``), run on the device of the model's parameters;
-    metrics holds 0-d f32 tensors ``mloss``, ``sloss`` and ``interp_sloss``
-    (the JAX ``_train_step_core``, step.py:143-173)."""
-    _check_ported(sc)
+    """Returns train_step(hr_nchw, weight[, temporal]) -> metrics: one Adam
+    step on the masked loss (``mloss``), run on the device of the model's
+    parameters; metrics holds 0-d f32 tensors ``mloss``, ``sloss`` and
+    ``interp_sloss`` (the JAX ``_train_step_core``, step.py:143-173)."""
     dev = _param_device(model)
 
-    def train_step(hr: torch.Tensor, weight: torch.Tensor
-                   ) -> Dict[str, torch.Tensor]:
+    def train_step(hr: torch.Tensor, weight: torch.Tensor,
+                   temporal: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         model.train()
         hr, weight = hr.to(dev), weight.to(dev)
+        temporal = None if temporal is None else temporal.to(dev)
         optimizer.zero_grad(set_to_none=True)
-        mloss, sloss, lr, target = _backward(model, hr, weight, sc)
+        mloss, sloss, lr, target = _backward(model, hr, weight, sc, temporal)
         optimizer.step()
         return _metrics(mloss, sloss, lr, target, weight, sc)
 
@@ -154,18 +184,19 @@ def _stack_metrics(metrics: List[Dict[str, torch.Tensor]]
 def build_multi_train_step(model: torch.nn.Module,
                            optimizer: torch.optim.Optimizer,
                            sc: StepConfig) -> Callable:
-    """Returns multi_step(hr_stack, weight_stack) -> metrics: K optimizer
-    steps over a staged (K, B, C, H, W) stack and its (K, B) weights, one
-    ``build_train_step`` step each in order (the JAX ``lax.scan``,
-    step.py:202-236, becomes a Python loop); each metric comes back as a
-    (K,) tensor on the device."""
+    """Returns multi_step(hr_stack, weight_stack[, temporal_stack]) ->
+    metrics: K optimizer steps over a staged (K, B, C, H, W) stack, its (K,
+    B) weights and (K, B, ntemporal) features, one ``build_train_step`` step
+    each in order (the JAX ``lax.scan``, step.py:202-236, becomes a Python
+    loop); each metric comes back as a (K,) tensor on the device."""
     step = build_train_step(model, optimizer, sc)
     dev = _param_device(model)
 
-    def multi_step(hr_stack: torch.Tensor, weight_stack: torch.Tensor
-                   ) -> Dict[str, torch.Tensor]:
+    def multi_step(hr_stack: torch.Tensor, weight_stack: torch.Tensor,
+                   temporal_stack: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         hr_stack, weight_stack = hr_stack.to(dev), weight_stack.to(dev)
-        return _stack_metrics([step(hr, w) for hr, w in zip(hr_stack, weight_stack)])
+        ts = [None] * len(hr_stack) if temporal_stack is None else temporal_stack.to(dev)
+        return _stack_metrics([step(hr, w, t) for hr, w, t in zip(hr_stack, weight_stack, ts)])
 
     return multi_step
 
@@ -173,28 +204,29 @@ def build_multi_train_step(model: torch.nn.Module,
 def build_accum_train_step(model: torch.nn.Module,
                            optimizer: torch.optim.Optimizer,
                            sc: StepConfig) -> Callable:
-    """Returns accum_step(hr_stack, weight_stack) -> metrics: ONE optimizer
-    update from K staged micro-batches (the JAX step.py:239-305). The
+    """Returns accum_step(hr_stack, weight_stack[, temporal_stack]) ->
+    metrics: ONE optimizer update from K staged micro-batches (the JAX
+    step.py:239-305); BatchNorm statistics move at each micro-batch. The
     gradient applied is sum_k where(sw_k > 0, sw_k * g_k, 0) / max(sum_k
     sw_k, 1e-12), sw_k the micro-batch's weight sum, all on the device
     (no host read of sw): K identical micro-batches reproduce the single
     step, and an all-padding micro-batch, whose RMSE gradient is NaN
     (d sqrt at 0 is inf), contributes exactly nothing. Metrics per
     micro-batch, (K,) tensors."""
-    _check_ported(sc)
     dev = _param_device(model)
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def accum_step(hr_stack: torch.Tensor, weight_stack: torch.Tensor
-                   ) -> Dict[str, torch.Tensor]:
+    def accum_step(hr_stack: torch.Tensor, weight_stack: torch.Tensor,
+                   temporal_stack: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         model.train()
         hr_stack, weight_stack = hr_stack.to(dev), weight_stack.to(dev)
+        ts = [None] * len(hr_stack) if temporal_stack is None else temporal_stack.to(dev)
         gacc = [torch.zeros_like(p) for p in params]
         swacc = torch.zeros((), device=dev)
         metrics = []
-        for hr, weight in zip(hr_stack, weight_stack):
+        for hr, weight, temporal in zip(hr_stack, weight_stack, ts):
             optimizer.zero_grad(set_to_none=True)
-            mloss, sloss, lr, target = _backward(model, hr, weight, sc)
+            mloss, sloss, lr, target = _backward(model, hr, weight, sc, temporal)
             sw = weight.sum()
             with torch.no_grad():
                 for a, p in zip(gacc, params):

@@ -9,7 +9,11 @@ pinned host memory without a wait, metrics stay on the card, and the host
 reads them once a timeslice, so the host can queue steps ahead of the card.
 
 Ragged batches (NaN-filtered tile counts vary per timeslice) are padded to
-the batch size with 0-weight tiles. One process drives one device: the JAX
+the batch size with 0-weight tiles, which the loss and, through the steps'
+``bn_sample_weight`` scope, train-mode BatchNorm statistics leave out. With
+``model.use_temporal_features`` every step of a timeslice gets that
+timeslice's row of sin/cos day and year features (``models/temporal.py``),
+as in JAX (trainer.py:87-97, 186-233). One process drives one device: the JAX
 trainer's mesh, its multi-host seeding and ``pipeline.shard_map`` have no
 counterpart here, and ``pipeline.profile``, ``packed_opt``, ``mesh``,
 ``shard_map`` and ``memory_debug`` are accepted with no effect.
@@ -60,6 +64,9 @@ from sres_tpu_torch.data.overlap import extract_overlapped_tiles
 from sres_tpu_torch.data.tiles import TileIterator, batchDomain
 from sres_tpu_torch.device import resolve_device
 from sres_tpu_torch.models import build_model
+from sres_tpu_torch.models.lapsrn import Pyramid
+from sres_tpu_torch.models.layers import has_batch_norm
+from sres_tpu_torch.models.temporal import get_temporal_features
 from sres_tpu_torch.ops.assemble import assemble_tiles
 from sres_tpu_torch.ops.resize import downsample, upsample
 from sres_tpu_torch.parallel.spatial import infer_region_sharded
@@ -68,9 +75,10 @@ from sres_tpu_torch.trainer.losses import psnr
 from sres_tpu_torch.trainer.results import ResultsAccumulator
 from sres_tpu_torch.trainer.step import (build_accum_train_step, build_eval_step,
                                          build_multi_train_step, build_optimizer,
-                                         build_train_step, interp_baseline,
-                                         lr_at_epoch, make_step_config,
-                                         prepare_inputs, set_learning_rate)
+                                         build_train_step, final_level, forward,
+                                         interp_baseline, lr_at_epoch,
+                                         make_step_config, prepare_inputs,
+                                         set_learning_rate)
 from sres_tpu_torch.util.larray import LArray
 from sres_tpu_torch.util.logging import lgm
 from sres_tpu_torch.util.zarrlite import ZarrWriter
@@ -109,14 +117,25 @@ class ModelTrainer:
 
         self.conform_to_data_grid()
         self.dataset = BatchDataset(cfg().task, seed=seed)
+        # temporal features: sin/cos of day and year progress per dataset
+        # time, injected at a UNet's bottleneck (trainer.py:87-97)
+        self.temporal_features: Optional[np.ndarray] = None
+        self._time_pos: Dict[Any, int] = {}
+        if bool(cfg().model.get("use_temporal_features", False)):
+            times = list(self.dataset.get_batch_time_coords())
+            self.temporal_features = get_temporal_features(np.asarray(times))
+            self._time_pos = {t: i for i, t in enumerate(times)}
+        ntemporal = 0 if self.temporal_features is None else self.temporal_features.shape[1]
         task, model_cfg = cfg().task.to_dict(), cfg().model.to_dict()
         precision = cfg().pipeline.get("precision", "bf16")
         self.model = build_model(model_cfg, len(self.input_variables),
                                  len(self.target_variables), precision=precision,
-                                 seed=seed, device=str(self.device))
+                                 seed=seed, device=str(self.device),
+                                 temporal_features=self.temporal_features)
         self.optimizer = build_optimizer(self.model, task,
                                          packed=bool(cfg().pipeline.get("packed_opt", False)))
-        self.step_config = make_step_config(task, model_cfg)
+        self.step_config = make_step_config(task, model_cfg, has_batch_norm(self.model),
+                                            ntemporal)
         self._train_step = build_train_step(self.model, self.optimizer, self.step_config)
         self._eval_step = build_eval_step(self.model, self.step_config)
         # K > 1: K staged padded batches a call, K optimizer steps
@@ -176,17 +195,33 @@ class ModelTrainer:
         self.timers["dispatch"] += time.perf_counter() - t1
         return out
 
-    def _run_train_step(self, hr: np.ndarray, weight: np.ndarray):
-        return self._timed_call(self._train_step, hr, weight)
+    def _temporal_arg(self, ctime, n: int) -> Optional[np.ndarray]:
+        """The (n, ntemporal) time-feature rows of ``ctime``'s timeslice, or
+        None when the model takes none (trainer.py:186-192)."""
+        if self.step_config.ntemporal == 0:
+            return None
+        feat = np.asarray(self.temporal_features[self._time_pos.get(ctime, 0)], np.float32)
+        return np.ascontiguousarray(np.broadcast_to(feat[None, :], (n, feat.shape[0])))
 
-    def _run_multi_step(self, staged):
+    def _with_temporal(self, ctime, n: int, *arrays) -> tuple:
+        t = self._temporal_arg(ctime, n)
+        return arrays if t is None else arrays + (t,)
+
+    def _run_train_step(self, hr: np.ndarray, weight: np.ndarray, ctime=None):
+        return self._timed_call(self._train_step,
+                                *self._with_temporal(ctime, hr.shape[0], hr, weight))
+
+    def _run_multi_step(self, staged, ctime=None):
         """One call over K staged (hr, weight) padded batches; (K,) metrics."""
-        return self._timed_call(self._multi_step, np.stack([s[0] for s in staged]),
-                                np.stack([s[1] for s in staged]))
+        hr, w = np.stack([s[0] for s in staged]), np.stack([s[1] for s in staged])
+        t = self._temporal_arg(ctime, hr.shape[1])
+        arrays = (hr, w) if t is None else (hr, w, np.stack([t] * len(staged)))
+        return self._timed_call(self._multi_step, *arrays)
 
-    def _run_eval_step(self, hr: np.ndarray, weight: np.ndarray):
+    def _run_eval_step(self, hr: np.ndarray, weight: np.ndarray, ctime=None):
         self.timers["eval_steps"] += 1
-        return self._eval_step(self._to_device(hr), self._to_device(weight))
+        arrays = self._with_temporal(ctime, hr.shape[0], hr, weight)
+        return self._eval_step(*[self._to_device(a) for a in arrays])
 
     @property
     def nparams(self) -> int:
@@ -337,11 +372,11 @@ class ModelTrainer:
             for hr, weight, nvalid in batch_stream:
                 self.timers["steps"] += 1
                 if self.steps_per_dispatch == 1:
-                    metrics_list.append(self._run_train_step(hr, weight))
+                    metrics_list.append(self._run_train_step(hr, weight, ctime))
                 else:
                     staged.append((hr, weight))
                     if len(staged) == self.steps_per_dispatch:
-                        metrics_list.append(self._run_multi_step(staged))
+                        metrics_list.append(self._run_multi_step(staged, ctime))
                         staged = []
             if staged and self.grad_accum > 1:
                 # ragged tail under accumulation: pad to K with zero-weight
@@ -352,13 +387,13 @@ class ModelTrainer:
                 hr0, w0 = staged[0]
                 staged += [(np.zeros_like(hr0), np.zeros_like(w0))] * \
                           (self.steps_per_dispatch - nreal)
-                metrics = self._run_multi_step(staged)
+                metrics = self._run_multi_step(staged, ctime)
                 metrics_list.append({k: v[:nreal] for k, v in metrics.items()})
             else:
                 # ragged tail of multi-step staging: per-batch steps are the
                 # same updates
                 for hr, weight in staged:
-                    metrics_list.append(self._run_train_step(hr, weight))
+                    metrics_list.append(self._run_train_step(hr, weight, ctime))
         return metrics_list
 
     def _make_batch_producer(self, ctime: TimeType):
@@ -439,7 +474,7 @@ class ModelTrainer:
                     if batch is None:
                         break
                     hr, weight, nvalid = self._pad_batch(batch)
-                    metrics, outputs = self._run_eval_step(hr, weight)
+                    metrics, outputs = self._run_eval_step(hr, weight, ctime)
                     model_losses.append(float(metrics["sloss"]))
                     interp_losses.append(float(metrics["interp_sloss"]))
                     self._merge_results(tset, outputs, nvalid)
@@ -533,7 +568,7 @@ class ModelTrainer:
                 if batch is None:
                     break
                 hr, weight, nvalid = self._pad_batch(batch)
-                metrics, outputs = self._run_eval_step(hr, weight)
+                metrics, outputs = self._run_eval_step(hr, weight, ctime)
                 metrics_list.append(metrics)
                 lr, out, tar, interp = self._to_host(*[o[:nvalid] for o in outputs])
                 stats = _stats(batch.attrs)
@@ -617,7 +652,8 @@ class ModelTrainer:
             elif "max" in batch.attrs:
                 scale[:ntiles] = batch.attrs["max"] - batch.attrs["min"]
                 offset[:ntiles] = batch.attrs["min"]
-        arrays = [torch.from_numpy(a) for a in (hr, weight, tile_ids, scale, offset)]
+        arrays = [torch.from_numpy(a) for a in
+                  self._with_temporal(ctime, nslots, hr, weight, tile_ids, scale, offset)]
         if self.device.type == "cuda":
             arrays = [a.pin_memory() for a in arrays]
         # the seconds go back with the arrays: a prep thread does not write
@@ -629,7 +665,11 @@ class ModelTrainer:
         """The region step, queued on the device: the padded batch of every
         grid slot → LR synthesis, forward, bicubic baseline, x·scale +
         offset, and each channel's tiles scattered into the region mosaic
-        (``assemble_tiles``). Returns {panel: (C, Y, X)} on the device.
+        (``assemble_tiles``). Returns {panel: (C, Y, X)} on the device. A
+        pyramid model gives its final level; a temporal model gets the
+        timeslice's features (a sixth array), as ``evaluate`` gives them
+        (JAX's region step passes none, and its temporal UNet raises there:
+        sres_tpu/trainer/trainer.py:730).
 
         Nothing is built per grid shape: the forward takes any batch, and
         the resize matrices are kept per size (``ops/resize.py``). The
@@ -639,8 +679,8 @@ class ModelTrainer:
         sres_tpu/trainer/trainer.py:737-740)."""
         self.timers["region_prep"] += prep_s
         t0 = time.perf_counter()
-        hr, weight, ids, scale, offset = [a.to(self.device, non_blocking=True)
-                                          for a in arrays]
+        hr, weight, ids, scale, offset, *temporal = [a.to(self.device, non_blocking=True)
+                                                     for a in arrays]
         t1 = time.perf_counter()
         sc = self.step_config
         tidx = list(sc.target_idx)
@@ -648,7 +688,8 @@ class ModelTrainer:
         self.model.eval()
         with torch.inference_mode():
             lr, target = prepare_inputs(hr, sc)
-            out = self.model(lr)
+            out = final_level(forward(self.model, lr, sc,
+                                      temporal=temporal[0] if temporal else None))
             interp = interp_baseline(lr, sc)
             panels = dict(target=target * tscale + toffset, model=out * tscale + toffset,
                           interpolated=interp * tscale + toffset, input=lr * scale + offset)
@@ -850,7 +891,7 @@ class ModelTrainer:
                                         list(self.input_variables))
 
         n = normed.shape[0]
-        _, outputs = self._run_eval_step(normed, np.ones((n,), np.float32))
+        _, outputs = self._run_eval_step(normed, np.ones((n,), np.float32), ctime)
         lr, out, tar, interp = self._to_host(*outputs)
 
         m, mlr = margin, margin // self.scale_factor
@@ -880,10 +921,16 @@ class ModelTrainer:
         tscale build per-pixel stats maps from the position-indexed sidecar
         rows (data/norm.py:tile_stats_maps); the global schemes normalize
         with the sidecar-global stats and, like the tiled path, return
-        normalized panels. target ⊂ input is handled by channel-slicing."""
+        normalized panels. target ⊂ input is handled by channel-slicing.
+        Pyramid and temporal models are refused, as sres_tpu's whole-region
+        forward fails on them (a tuple of levels, no features)."""
         ntype = cfg().task.norm
         if self.domain != batchDomain.Tiles:
             raise NotImplementedError("spatial inference requires a tiles-domain task")
+        if self.step_config.ntemporal or isinstance(self.model, Pyramid):
+            raise NotImplementedError(
+                f"spatial inference of '{self.model_name}' (a pyramid or temporal model) "
+                "is refused, as in sres_tpu")
         self._maybe_update_model(kwargs)
 
         with self.loader_lock:

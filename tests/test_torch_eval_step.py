@@ -118,6 +118,21 @@ def test_chip_smoke_edsr_config_is_the_yaml():
     assert got == want
 
 
+ZOO = ["vdsr", "dbpn", "latticenet", "esrt", "srdn", "unet", "lapsrn", "mscnn"]
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_chip_smoke_zoo_configs_are_the_yamls(name):
+    """Phase 28 runs each zoo model as its config/model YAML is written."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    want = yaml.safe_load((ROOT / f"config/model/{name}.yaml").read_text())
+    assert chip_smoke.ZOO_CFGS[name] == want
+
+
 _FRESH_PROCESS = """
 import contextlib, io, json, sys
 sys.path.insert(0, %r)
@@ -214,6 +229,26 @@ sres_tpu_torch.config.ConfigContext.deactivate()
 zarr_shape = sres_tpu_torch.util.zarrlite.read_zarr(store).shape
 import shutil
 shutil.rmtree(root)
+import sres_tpu_torch.models.vdsr, sres_tpu_torch.models.dbpn, sres_tpu_torch.models.esrt
+import sres_tpu_torch.models.latticenet, sres_tpu_torch.models.srdn
+import sres_tpu_torch.models.temporal, sres_tpu_torch.models.unet
+import sres_tpu_torch.models.lapsrn, sres_tpu_torch.models.mscnn
+zoo = dict(
+    vdsr=dict(name="vdsr", nfeatures=4, nlayers=3),
+    dbpn=dict(name="dbpn", nfeatures=4, nprojectionfeatures=2, depth=2),
+    latticenet=dict(name="latticenet", nfeatures=16, ndiff=4),
+    esrt=dict(name="esrt", nfeatures=16, nlayers=1),
+    srdn=dict(name="srdn", nfeatures={"hidden": 4, "upscale": 4}, nlayers=1,
+              kernel_size={"features": 3, "hidden": 3, "output": 1}),
+    unet=dict(name="unet", nfeatures=4, nlayers=2, use_temporal_features=True),
+    lapsrn=dict(name="lapsrn", nfeatures=4), mscnn=dict(name="mscnn", nfeatures=4, nlayers=1))
+zoo_out = {}
+for zname, zcfg in zoo.items():
+    zm = build_model(zcfg, 1, 1, "f32", seed=1, device="cpu", temporal_features=4).eval()
+    zargs = (torch.zeros(2, 1, 8, 8),) + ((torch.zeros(2, 4),) if zname == "unet" else ())
+    with torch.no_grad():
+        zo = zm(*zargs)
+    zoo_out[zname] = [list(t.shape) for t in (zo if isinstance(zo, tuple) else (zo,))]
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "yaml", "sres_tpu"))
 out = io.StringIO()
@@ -223,7 +258,8 @@ print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
                       swin_keys=len(swin_sd), swin_out=swin_out,
                       swin16_out=swin16_out, t256_out=t256_out,
                       edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out,
-                      csv_rows=csv_rows, nc_files=nc_files, zarr_shape=zarr_shape)))
+                      csv_rows=csv_rows, nc_files=nc_files, zarr_shape=zarr_shape,
+                      zoo_out=zoo_out)))
 """
 
 
@@ -248,7 +284,9 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     epoch's checkpoint through the inference launcher in every region mode
     (one validation timestep: Tiles at 0, the image at 0), and after the
     zarr export launcher on a SWOT-format fixture (the compiled decoder,
-    the SWOT reader, the zarr writer)."""
+    the SWOT reader, the zarr writer), and after building and running a
+    tiny model of each of the eight zoo architectures on the CPU (the UNet
+    with 4 temporal features; LapSRN and MSCNN one output a level)."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
     assert fresh_process["swin_keys"] == 25
@@ -261,6 +299,10 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     assert fresh_process["csv_rows"] == ["train", "train", "valid", "test"]
     assert fresh_process["nc_files"] == ["SST-0.image.nc", "SST-0.tiles.nc"]
     assert fresh_process["zarr_shape"] == [2, 2, 24, 32]
+    hr = [2, 1, 32, 32]
+    assert fresh_process["zoo_out"] == dict(
+        vdsr=[hr], dbpn=[hr], latticenet=[hr], esrt=[hr], srdn=[hr], unet=[hr],
+        lapsrn=[[2, 1, 16, 16], hr], mscnn=[[2, 1, 16, 16], hr])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):

@@ -96,7 +96,7 @@ def test_rcan_bias_false_loads_strictly_and_matches_jax(jax_rcan_no_bias, trunk)
 def test_weight_export_copy_matches_jax_exporter(jax_rcan):
     """The port's copy of the RCAN exporter against
     sres_tpu.util.torch_export.export_variables on a seeded tree: the same
-    keys in the same order, bit for bit. Other architectures raise."""
+    keys in the same order, bit for bit. An unknown architecture raises."""
     from sres_tpu.util.torch_export import export_variables as jax_export
     from sres_tpu_torch.util import weights
     variables = jax_rcan[1]
@@ -105,8 +105,8 @@ def test_weight_export_copy_matches_jax_exporter(jax_rcan):
     assert list(got) == list(want)
     for k, v in want.items():
         assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        weights.export_variables("vdsr", variables, CFG)
+    with pytest.raises(KeyError, match="no weight export for 'nosuch'"):
+        weights.export_variables("nosuch", variables, CFG)
 
 
 def test_winograd_state_dict_names_match_direct():
@@ -142,10 +142,11 @@ def test_seeded_init_is_reproducible_and_torch_default():
 
 
 def test_unported_knobs_raise_and_tpu_knobs_are_ignored():
-    for extra in (dict(quantization="int8_fused"),
-                  dict(pervar_heads=True), dict(name="vdsr")):
+    for extra in (dict(quantization="int8_fused"), dict(pervar_heads=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dict(CFG, **extra), 1, 1, "f32", device="cpu")
+    with pytest.raises(KeyError, match="Unknown model 'nosuch'; available: .*'vdsr'"):
+        build_model(dict(CFG, name="nosuch"), 1, 1, "f32", device="cpu")
     ref = build_model(CFG, 1, 1, "f32", device="cpu").state_dict()
     # model.fused builds (winning over winograd, as in JAX) with the direct
     # model's parameter names
