@@ -218,7 +218,29 @@ Phases, one line each (every line carries the card's name and power limit):
    ``infer_region`` of the best-validation checkpoint (100 slots) against
    the f32 model in the envelope of the bf16 eval step.
    ``python3 chip_smoke.py --only 28`` runs the toolchain phase and this
-   phase alone (a rehearsal; it prints no result line).
+   phase alone (a rehearsal; it prints no result line);
+29. ``model.quantization`` on the s8 kernels (``ops/cuda/int8_conv.cu``):
+   (a) ``q8_quantize`` at every scale-group kind (pairs of samples, one
+   sample, output channels, input channels of the flipped weights, the
+   whole g·sx; int8_fused's and AQT's grids, f32 and bf16),
+   ``s8_conv_fprop`` at (72, 64, 48, 48) in pairs and alone and at VDSR's
+   (72, 1 → 64, 192, 192) and (72, 64, 192, 192), ``s8_conv_wgrad`` at
+   (72, 64, 48, 48) in pairs, each bit for bit against its twin and timed
+   in device time against its bound (int8 operations over 1979 TOP/s) and
+   cuDNN's bf16 conv or wgrad of the same integer operands; int8_fused's
+   backward convs on the kernels' and the twins' operands; (b)
+   RCAN-10-20-64 as its YAML sets it (no Winograd: quantization switches
+   it off) served under ``int8`` and ``int8_fused`` (three requests of 72
+   tiles, 411 ``s8_conv_fprop`` and 822 ``q8_quantize`` launches each) and
+   trained under ``int8_fused`` and ``int8_full`` (remat on; 1232 fprops
+   with the recompute and the dx convs, 411 wgrads, 2875 quantizations a
+   step), three Adam steps each (the loss must fall), every one in turns
+   with the bf16 direct trunk of the same weights: ms, tiles/s, peak
+   memory, idle share; the int8_fused loss of one batch in the twins'
+   envelope; (c) EDSR and VDSR at their YAMLs served under int8_fused and
+   trained under int8_full for two steps, with their launches.
+   ``python3 chip_smoke.py --only 29`` runs the toolchain phase and this
+   phase alone.
 
 Phase 9's profile of a step fails on a copy from the host to the card
 (the step's operands are on the card).
@@ -259,7 +281,10 @@ requests of phases 5, 12, 16, 20 and 23; ``region_launches`` over phase 26's
 served calls, the comparisons' and the profiled repeats' left out;
 ``real_data_launches`` over phase 27's training runs and served calls;
 ``zoo_launches`` over phase 28, which must be 0 for every kernel; the
-chain's over the one probe launch of phase 18), the card's
+chain's over the one probe launch of phase 18; the int8 kernels'
+``launches`` over phase 29's train steps and ``serve_launches`` over its
+served requests, their ``replaces`` naming the XLA op of sres_tpu that
+they stand for, since no Pallas kernel did), the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Any failed
 check exits non-zero before those lines are printed.
 """
@@ -1846,16 +1871,18 @@ def phase_fg_group(dev, seed):
 def _all_launches():
     """The launch counts of every kernel wrapper of the port."""
     from sres_tpu_torch.ops import fused_group as fg
+    from sres_tpu_torch.ops import int8_conv as q8
     from sres_tpu_torch.ops import window_attention as twa
     from sres_tpu_torch.ops import winograd_conv as wc
-    return {**wc.LAUNCHES, **twa.LAUNCHES, **fg.LAUNCHES}
+    return {**wc.LAUNCHES, **twa.LAUNCHES, **fg.LAUNCHES, **q8.LAUNCHES}
 
 
 def _reset_all_launches():
     from sres_tpu_torch.ops import fused_group as fg
+    from sres_tpu_torch.ops import int8_conv as q8
     from sres_tpu_torch.ops import window_attention as twa
     from sres_tpu_torch.ops import winograd_conv as wc
-    for mod in (wc, twa, fg):
+    for mod in (wc, twa, fg, q8):
         mod.reset_launches()
 
 
@@ -3744,11 +3771,403 @@ def phase_zoo(dev, seed, root):
     return dict.fromkeys(_all_launches(), 0)
 
 
+# ----------------------------------------------------- quantization (29)
+# config/model/rcan-10-20-64.yaml, edsr.yaml and vdsr.yaml as they are:
+# quantization switches the Winograd trunk off (sres_tpu/models/rcan.py
+# :84-87, edsr.py:54-58)
+Q_RCAN = {k: v for k, v in MODEL_CFG.items() if k != "winograd"}
+Q_EDSR = {k: v for k, v in EDSR_CFG.items() if k != "winograd"}
+Q_VDSR = dict(ZOO_CFGS["vdsr"])
+# quantized convs a forward: RCAN 10·(2·20 + 1) + 1, EDSR 2·16 + 1, VDSR 4 - 1
+Q_NCONV = {"rcan": 411, "edsr": 33, "vdsr": 3}
+Q_ESTEPS = 2          # EDSR's and VDSR's int8_full steps
+INT8_OPS_S = 1979e12  # H100 SXM data sheet: dense int8 tensor-core ops/s
+Q_SRC = "sres_tpu_torch/ops/cuda/int8_conv.cu"
+Q_REPLACES = {"q8_quantize": "no Pallas kernel: sres_tpu/ops/int8_conv.py:151 (XLA ops)",
+              "s8_conv_fprop": "no Pallas kernel: sres_tpu/ops/int8_conv.py:160 (an XLA s8 conv)",
+              "s8_conv_wgrad": "no Pallas kernel: sres_tpu/ops/int8_conv.py:195 (XLA s8 dots)"}
+Q_KERNELS = {"q8_quantize": ["q8_absmax_kernel", "q8_quantize_kernel"],
+             "s8_conv_fprop": ["s8_conv_fprop_kernel"],
+             "s8_conv_wgrad": ["s8_conv_wgrad_kernel", "s8_wgrad_finish_kernel"]}
+
+
+def int8_bound(nbytes: float, ops: float):
+    """(least ms, what bounds it): bytes over HBM rate vs int8 tensor-core
+    operations over the int8 peak."""
+    t_b, t_o = nbytes / HBM_BYTES_S, ops / INT8_OPS_S
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def _device_busy_cuda(fn):
+    """One call of ``fn`` under torch.profiler with device activity alone
+    (a train step launches thousands of kernels; the host events of a full
+    capture took ~20 s to gather): its device-busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def phase_int8_kernels(dev, rng):
+    """29a: the three int8 kernels against their twins at full width, bit
+    for bit, timed in device time against their bounds and cuDNN."""
+    import torch
+    import torch.nn.functional as F
+    from sres_tpu_torch.ops import int8_conv as q8
+    cl = torch.channels_last
+    x = _rand(rng, dev, SHAPE).contiguous(memory_format=cl)
+    xb = x.bfloat16()
+    w = _rand(rng, dev, (64, 64, 3, 3), 0.05)
+    g = _rand(rng, dev, SHAPE).contiguous(memory_format=cl)
+    bias = _rand(rng, dev, (64,), 0.05).bfloat16()
+    xq2, sx2 = q8.quantize(xb, 2)
+    sx_rows = q8._rows(sx2, 2, BATCH)
+    res = {}
+
+    cases = {"act_pk2_bf16": (xb, 2, 0, None, False), "act_pk1_f32": (x, 1, 0, None, False),
+             "act_pk2_aqt_bf16": (xb, 2, 1, None, False), "act_pk1_aqt_f32": (x, 1, 1, None, False),
+             "w_per_out": (w, 1, 0, None, False), "w_per_in_flipped": (w.transpose(0, 1), 1, 0, None, True),
+             "w_per_out_aqt_bf16": (w.bfloat16(), 1, 1, None, False),
+             "g_sx_whole": (g, None, 0, sx_rows, False)}
+    q_err = 0.0
+    for name, (t, grp, grid, pre, flip) in cases.items():
+        q, sc = q8.quantize(t, grp, grid, pre=pre, flip=flip)
+        qp, sp = q8.quantize_plain(t, grp, grid, pre=pre, flip=flip)
+        err = max(float((q.float() - qp).abs().max()), float((sc - sp).abs().max()))
+        q_err = max(q_err, err)
+        say("29 kernel q8_quantize", case=name, shape=list(t.shape), groups=sc.numel(),
+            bit_equal=err == 0.0, max_abs_err=err)
+        if err != 0.0:
+            raise CheckFailed(f"q8_quantize {name}: differs from its twin by {err}")
+    modes = {"act_pk2_bf16": lambda: q8.quantize(xb, 2), "g_sx_whole_f32": lambda: q8.quantize(
+        g, None, pre=sx_rows), "w_per_out": lambda: q8.quantize(w, 1)}
+    t = {k: device_ms(f) for k, f in modes.items()}
+    plain_ms = device_ms(lambda: q8.quantize_plain(xb, 2))
+    bound, by = int8_bound(3 * xb.numel(), 0.0)             # bf16 read, s8 written
+    res["q8_quantize"] = dict(max_abs_err=q_err, ms=t["act_pk2_bf16"], plain_ms=plain_ms,
+                              bound_ms=bound, bound_by=by, library_ms=None, modes=t,
+                              mode_bound_ms=dict(act_pk2_bf16=bound, g_sx_whole_f32=int8_bound(
+                                  5 * g.numel(), 0.0)[0]))
+    say("29 kernel q8_quantize timing", shape=list(SHAPE), device_ms=t, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by)
+
+    # s8_conv_fprop at every instance the main path runs: RCAN's trunk
+    # (int8_fused at pack 1 and 2, AQT's bf16 epilogue with bias at pack 2),
+    # VDSR's 192² HR grid (cin 1 and 64), and int8_full's dx (f32 output:
+    # the cotangent against the flipped, transposed weights) at 48² and 192²
+    x1 = _rand(rng, dev, (BATCH, 1, HR, HR))
+    x192 = _rand(rng, dev, (BATCH, 64, HR, HR)).bfloat16().contiguous(memory_format=cl)
+    g192 = _rand(rng, dev, (BATCH, 64, HR, HR))
+    w1 = _rand(rng, dev, (64, 1, 3, 3), 0.3)
+    wt = w.transpose(0, 1)
+    fused, aqt = q8.GRID_FUSED, q8.GRID_AQT
+    bf16, f32 = torch.bfloat16, torch.float32
+    # name: (activation, its grid and pack, weights, their grid, flip, bias,
+    # output dtype, epilogue)
+    fcases = {"48_pk1": (xb, fused, 1, w, fused, False, bias, bf16, q8.EPI_FUSED),
+              "48_pk2": (xb, fused, 2, w, fused, False, bias, bf16, q8.EPI_FUSED),
+              "48_pk2_aqt_bf16_bias": (xb, aqt, 2, w.bfloat16(), aqt, False, bias, bf16,
+                                       q8.EPI_AQT16),
+              "vdsr_cin1_192": (x1, fused, 1, w1, fused, False, bias, bf16, q8.EPI_FUSED),
+              "vdsr_192": (x192, fused, 1, w, fused, False, bias, bf16, q8.EPI_FUSED),
+              "dx_48_pk2_f32": (g, fused, 2, wt, fused, True, None, f32, q8.EPI_FUSED),
+              "dx_192_pk1_f32": (g192, fused, 1, wt, fused, True, None, f32, q8.EPI_FUSED)}
+    t, lib, bounds, plain, f_err = {}, {}, {}, {}, 0.0
+    for name, (xt, xgrid, pk, wt_, wgrid, flip, bt, odt, epi) in fcases.items():
+        xq, sx = q8.quantize(xt, pk, xgrid)
+        wq, sw = q8.quantize(wt_, 1, wgrid, flip=flip)
+        call = lambda: q8.conv_fprop(xq, wq, sx, pk, sw, bt, odt, epi)
+        y = call()
+        yp = q8.conv_fprop(xq.float(), wq.float(), sx, pk, sw, bt, odt, epi, plain=True)
+        err = float((y.float() - yp.float()).abs().max())
+        f_err = max(f_err, err)
+        say("29 kernel s8_conv_fprop", case=name, shape=list(xt.shape), out_dtype=str(odt),
+            epilogue=epi, bias=bt is not None, bit_equal=err == 0.0, max_abs_err=err,
+            finite=bool(torch.isfinite(y.float()).all()))
+        if err != 0.0:
+            raise CheckFailed(f"s8_conv_fprop {name}: differs from its twin by {err}")
+        t[name] = device_ms(call)
+        xqb = xq.to(bf16).contiguous(memory_format=cl)
+        wqb = wq.to(bf16).contiguous(memory_format=cl)
+        lib[name] = device_ms(lambda: F.conv2d(xqb, wqb, bt, padding=1))
+        m = xt.shape[0] * xt.shape[2] * xt.shape[3]
+        bounds[name] = int8_bound(xq.numel() + wq.numel() + y.element_size() * m * 64,
+                                  2.0 * m * 64 * 9 * xt.shape[1])
+        if name == "48_pk2":
+            plain["48_pk2"] = device_ms(lambda: q8.conv_fprop(
+                xq.float(), wq.float(), sx, pk, sw, bt, odt, epi, plain=True))
+        del xqb, wqb, y, yp
+    res["s8_conv_fprop"] = dict(max_abs_err=f_err, ms=t["48_pk2"], plain_ms=plain["48_pk2"],
+                                bound_ms=bounds["48_pk2"][0], bound_by=bounds["48_pk2"][1],
+                                library_ms=lib["48_pk2"], modes=t,
+                                mode_bound_ms={k: v[0] for k, v in bounds.items()},
+                                mode_library_ms=lib)
+    say("29 kernel s8_conv_fprop timing", device_ms=t, library_device_ms_cudnn_bf16=lib,
+        bound_ms={k: v[0] for k, v in bounds.items()}, plain_ms=plain["48_pk2"])
+
+    # s8_conv_wgrad: int8_full's dw at (72, 64, 48, 48), pack 2 (RCAN, EDSR),
+    # and at VDSR's 192² at pack 1, cin 64 and cin 1
+    sx192 = q8._rows(q8.quantize(x192, 1)[1], 1, BATCH)
+    gq192, sgp192 = q8.quantize(g192, None, pre=sx192)
+    gq, sgp = q8.quantize(g, None, pre=sx_rows)
+    wcases = {"48_pk2": (xq2, gq, sgp, 2),
+              "vdsr_192_pk1": (q8.quantize(x192, 1)[0], gq192, sgp192, 1),
+              "vdsr_cin1_192_pk1": (q8.quantize(x1, 1)[0], gq192, sgp192, 1)}
+    wt_ms, wt_lib, wt_bound, w_err = {}, {}, {}, 0.0
+    for name, (xq, gqc, sgpc, pk) in wcases.items():
+        ws = (64, xq.shape[1], 3, 3)
+        call = lambda: q8.conv_wgrad(xq, gqc, ws, pk, sgpc, bf16)
+        dw = call()
+        dwp = q8.conv_wgrad(xq.float(), gqc.float(), ws, pk, sgpc, bf16, plain=True)
+        err = float((dw - dwp).abs().max())
+        w_err = max(w_err, err)
+        say("29 kernel s8_conv_wgrad", case=name, shape=list(xq.shape), pack=pk,
+            bit_equal=err == 0.0, max_abs_err=err, max_abs=float(dw.abs().max()))
+        if err != 0.0:
+            raise CheckFailed(f"s8_conv_wgrad {name}: differs from its twin by {err}")
+        wt_ms[name] = device_ms(call)
+        xqb = xq.to(bf16).contiguous(memory_format=cl)
+        gqb = gqc.to(bf16).contiguous(memory_format=cl)
+        wt_lib[name] = device_ms(lambda: torch.nn.grad.conv2d_weight(xqb, ws, gqb, padding=1))
+        m = xq.shape[0] * xq.shape[2] * xq.shape[3]
+        wt_bound[name] = int8_bound(xq.numel() + gqc.numel() + 4 * dw.numel(),
+                                    2.0 * 9 * 64 * xq.shape[1] * m)
+        del xqb, gqb, dw, dwp
+    plain_ms = time_ms(lambda: q8.conv_wgrad(xq2.float(), gq.float(), (64, 64, 3, 3), 2, sgp,
+                                             bf16, plain=True), iters=2, warmup=1)
+    bound, by = wt_bound["48_pk2"]
+    res["s8_conv_wgrad"] = dict(max_abs_err=w_err, ms=wt_ms["48_pk2"], plain_ms=plain_ms,
+                                bound_ms=bound, bound_by=by, library_ms=wt_lib["48_pk2"],
+                                modes=wt_ms, mode_bound_ms={k: v[0] for k, v in wt_bound.items()},
+                                mode_library_ms=wt_lib)
+    say("29 kernel s8_conv_wgrad timing", device_ms=wt_ms, plain_ms=plain_ms,
+        bound_ms={k: v[0] for k, v in wt_bound.items()},
+        library_device_ms_cudnn_bf16_wgrad=wt_lib)
+    del x1, x192, g192, gq192
+
+    # int8_fused's backward: cuDNN's bf16 convs on the kernels' and the twins'
+    # operands, within a bf16 ulp of each other
+    grads = []
+    for plain in (False, True):
+        xr = xb.detach().requires_grad_()
+        wr = w.detach().requires_grad_()
+        y = q8.Int8ConvFn.apply(xr, wr, bias, 2, torch.bfloat16, plain)
+        y.backward(g.bfloat16())
+        grads.append((xr.grad.float(), wr.grad.float()))
+    e = [rel_err(a, b) for a, b in zip(grads[0], grads[1])]
+    say("29 int8_fused backward kernels vs twins", dx_rel=e[0], dw_rel=e[1], bound=2.0 ** -7)
+    if not max(e) <= 2.0 ** -7:
+        raise CheckFailed(f"int8_fused backward: kernels vs twins {e}")
+    for k, v in res.items():
+        v["kernels"] = Q_KERNELS[k]
+    return res
+
+
+def _q_serve(name, model, sc, reqs, weight, want_nconv):
+    """Three requests through build_eval_step: launches, finite outputs."""
+    import torch
+    from sres_tpu_torch.trainer.step import build_eval_step
+    es = build_eval_step(model, sc)
+    es(reqs[0], weight)
+    torch.cuda.synchronize()
+    _reset_all_launches()
+    out = [es(hr, weight) for hr in reqs]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_launches().items() if v}
+    want = {"q8_quantize": 2 * NREQ * want_nconv, "s8_conv_fprop": NREQ * want_nconv}
+    sl = [float(m["sloss"]) for m, _ in out]
+    say(f"29 {name} serve", launches=launches, expected=want, sloss=sl,
+        interp_sloss=[float(m["interp_sloss"]) for m, _ in out])
+    if launches != want:
+        raise CheckFailed(f"{name} serving launches {launches} != {want}")
+    for m, (lr, y, tar, interp) in out:
+        if not (all(math.isfinite(v) for v in sl) and tuple(y.shape) == (BATCH, 1, HR, HR)
+                and bool(torch.isfinite(y).all())):
+            raise CheckFailed(f"{name} serving: non-finite or misshapen output")
+    return es, launches
+
+
+def _q_train(name, model, sc, batch, weight, want, nstep):
+    """``nstep`` Adam steps on one batch: launches a step, finite metrics."""
+    import torch
+    from sres_tpu_torch.trainer.step import build_optimizer, build_train_step
+    step = build_train_step(model, build_optimizer(model, TRAIN_TASK), sc)
+    total, losses = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(nstep):
+        _reset_all_launches()
+        met = step(batch, weight)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _all_launches().items() if v}
+        vals = {k: float(v) for k, v in met.items()}
+        say(f"29 {name} train step", step=i, **vals, launches=launches, expected=want)
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise CheckFailed(f"{name} train step {i}: non-finite metrics {vals}")
+        if launches != want:
+            raise CheckFailed(f"{name} train step {i}: launches {launches} != {want}")
+        losses.append(vals["mloss"])
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return step, total, losses, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _q_loss(model, sc, hr, weight):
+    import torch
+    from sres_tpu_torch.trainer.losses import sr_loss
+    from sres_tpu_torch.trainer.step import prepare_inputs
+    model.train()
+    with torch.no_grad():
+        lr, target = prepare_inputs(hr, sc)
+        return sr_loss(model(lr), target, weight, sc.loss_fn)[1].float().reshape(1)
+
+
+def _q_full_want(nconv, nrecompute, ndx):
+    """int8_full's launches a step: the forward's convs, the recomputed
+    groups', the dx convs and every weight gradient; two quantizations a
+    forward conv, three a backward one (g, the flipped weights, g·sx), one
+    where the input needs no gradient."""
+    return {"q8_quantize": 2 * (nconv + nrecompute) + 3 * ndx + (nconv - ndx),
+            "s8_conv_fprop": nconv + nrecompute + ndx, "s8_conv_wgrad": nconv}
+
+
+def phase_int8_slice(dev, seed):
+    """29b and 29c: RCAN-10-20-64 served under int8 and int8_fused and
+    trained under int8_fused and int8_full (remat), each in turns with the
+    bf16 direct trunk of the same weights; EDSR and VDSR served under
+    int8_fused and trained under int8_full."""
+    import torch
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    from sres_tpu_torch.trainer.step import build_eval_step, make_step_config
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 29)
+    reqs = [torch.from_numpy(smooth_fields(rng, BATCH, HR)).to(dev) for _ in range(NREQ)]
+    weight = torch.ones(BATCH, device=dev)
+    sc = make_step_config(TASK_CFG, Q_RCAN)
+    direct = build_model(Q_RCAN, 1, 1, "bf16", seed=seed, device=dev)
+    sd = direct.state_dict()
+
+    def quantized(mode, precision="bf16"):
+        m = build_model(dict(Q_RCAN, quantization=mode), 1, 1, precision, device=dev)
+        m.load_state_dict(sd)
+        return m
+
+    serve_launches, train_launches, summary = {}, {}, {}
+    steps = {"direct": build_eval_step(direct, sc)}
+    for mode in ("int8", "int8_fused"):
+        steps[mode], la = _q_serve(f"rcan {mode}", quantized(mode), sc, reqs, weight,
+                                   Q_NCONV["rcan"])
+        for k, v in la.items():
+            serve_launches[k] = serve_launches.get(k, 0) + v
+    timing = _windows(lambda name, i: steps[name](reqs[i % NREQ], weight), tuple(steps), NREQ)
+    for name in steps:
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps[name](reqs[0], weight)
+        torch.cuda.synchronize()
+        busy = _device_busy_cuda(lambda: steps[name](reqs[0], weight))
+        med = timing[name][0]
+        summary[f"serve_{name}"] = dict(ms=med, tiles_per_s=BATCH / (med / 1e3),
+                                        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                                        device_idle_pct=100.0 * (1 - busy / med))
+        say(f"29 rcan serve timing {name}", windows_ms_per_request=timing[name][1],
+            **summary[f"serve_{name}"])
+    del steps
+
+    # the loss of one batch: kernels and twins in bf16 against the twins in f32
+    model = quantized("int8_fused")
+    ref = quantized("int8_fused", "f32")
+    set_plain_twins(ref, True)
+    lk, lt = _q_loss(model, sc, reqs[0], weight), _q_loss(ref, sc, reqs[0], weight)
+    del ref
+    set_plain_twins(model, True)
+    lp = _q_loss(model, sc, reqs[0], weight)
+    set_plain_twins(model, False)
+    e_k, e_p = rel_err(lk, lt), rel_err(lp, lt)
+    say("29 rcan int8_fused loss vs twins", kernel_bf16=float(lk), twin_bf16=float(lp),
+        twin_f32=float(lt), bf16_kernel_rel=e_k, bf16_plain_rel=e_p, bound=2 * e_p + 1e-4)
+    if not e_k <= 2 * e_p + 1e-4:
+        raise CheckFailed(f"rcan int8_fused loss outside the twins' envelope {e_k} > 2*{e_p}+1e-4")
+
+    n = Q_NCONV["rcan"]
+    wants = {"int8_fused": {"q8_quantize": 2 * n, "s8_conv_fprop": n},
+             "int8_full": _q_full_want(n, n - 1, n)}
+    tsteps, peaks = {}, {}
+    for mode, want in wants.items():
+        m = model if mode == "int8_fused" else quantized(mode)
+        tsteps[mode], tot, losses, peaks[mode] = _q_train(f"rcan {mode}", m, sc, reqs[0], weight,
+                                                          want, NSTEP)
+        if not losses[-1] < losses[0]:
+            raise CheckFailed(f"rcan {mode}: the loss did not fall over {NSTEP} steps: {losses}")
+        for k, v in tot.items():
+            train_launches[k] = train_launches.get(k, 0) + v
+    from sres_tpu_torch.trainer.step import build_optimizer, build_train_step
+    d = build_model(Q_RCAN, 1, 1, "bf16", device=dev)
+    d.load_state_dict(sd)
+    tsteps["direct"] = build_train_step(d, build_optimizer(d, TRAIN_TASK), sc)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tsteps["direct"](reqs[0], weight)
+    torch.cuda.synchronize()
+    peaks["direct"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    timing = _windows(lambda name, i: tsteps[name](reqs[i % NREQ], weight), tuple(tsteps), 1)
+    for name in tsteps:
+        med = timing[name][0]
+        busy = _device_busy_cuda(lambda: tsteps[name](reqs[0], weight))
+        summary[f"train_{name}"] = dict(ms=med, tiles_per_s=BATCH / (med / 1e3),
+                                        peak_mem_gb=peaks[name],
+                                        device_idle_pct=100.0 * (1 - busy / med))
+        say(f"29 rcan train timing {name}", windows_ms_per_step=timing[name][1],
+            **summary[f"train_{name}"])
+    del tsteps, model, d
+
+    # EDSR and VDSR at their YAMLs: int8_fused served, int8_full trained
+    for name, cfg in (("edsr", Q_EDSR), ("vdsr", Q_VDSR)):
+        n = Q_NCONV[name]
+        m = build_model(dict(cfg, quantization="int8_fused"), 1, 1, "bf16", seed=seed,
+                        device=dev)
+        csc = make_step_config(TASK_CFG, cfg)
+        es, la = _q_serve(f"{name} int8_fused", m, csc, reqs, weight, n)
+        for k, v in la.items():
+            serve_launches[k] = serve_launches.get(k, 0) + v
+        ms = time_ms(lambda: es(reqs[0], weight), iters=NREQ, warmup=0)
+        mf = build_model(dict(cfg, quantization="int8_full"), 1, 1, "bf16", device=dev)
+        mf.load_state_dict(m.state_dict())
+        # VDSR's first conv takes the upsampled input, which needs no gradient
+        ndx = n - 1 if name == "vdsr" else n
+        step, tot, losses, peak = _q_train(f"{name} int8_full", mf, csc, reqs[0], weight,
+                                           _q_full_want(n, 0, ndx), Q_ESTEPS)
+        tms = time_ms(lambda: step(reqs[0], weight), iters=1, warmup=0)
+        for k, v in tot.items():
+            train_launches[k] = train_launches.get(k, 0) + v
+        summary[f"{name}_serve_int8_fused"] = dict(ms=ms, tiles_per_s=BATCH / (ms / 1e3))
+        summary[f"{name}_train_int8_full"] = dict(ms=tms, tiles_per_s=BATCH / (tms / 1e3),
+                                                  peak_mem_gb=peak, losses=losses)
+        say(f"29 {name} summary", serve_int8_fused=summary[f"{name}_serve_int8_fused"],
+            train_int8_full=summary[f"{name}_train_int8_full"])
+        del m, mf, es, step
+    say("29 quantization summary", card=CARD, phase_s=time.perf_counter() - t0,
+        serve_launches=serve_launches, train_launches=train_launches, **summary)
+    return serve_launches, train_launches
+
+
+def phase_int8(dev, rng, seed):
+    """Phase 29: model.quantization on the s8 kernels."""
+    t0 = time.perf_counter()
+    kern = phase_int8_kernels(dev, rng)
+    say("29a kernels done", phase_s=time.perf_counter() - t0)
+    serve_launches, train_launches = phase_int8_slice(dev, seed)
+    return kern, serve_launches, train_launches
+
+
 def main() -> int:
     global CARD, T0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", type=int, choices=[28], default=None,
+    ap.add_argument("--only", type=int, choices=[28, 29], default=None,
                     help="run the toolchain phase and this phase alone, and print no "
                          "result line (a rehearsal of one phase)")
     args = ap.parse_args()
@@ -3780,6 +4199,10 @@ def main() -> int:
             phase_zoo(dev, args.seed, root)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+        say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
+        return 0
+    if args.only == 29:
+        phase_int8(dev, rng, args.seed)
         say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
         return 0
     kern = {"wino_conv": phase_conv(dev, rng), "ca_skip": phase_ca(dev, rng)}
@@ -3827,6 +4250,10 @@ def main() -> int:
         zoo_launches = phase_zoo(dev, args.seed, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    q_kern, q_serve, q_train = phase_int8(dev, rng, args.seed)
+    kern.update(q_kern)
+    serve_launches.update(q_serve)
+    launches.update(q_train)
     say("done", total_s=time.perf_counter() - t_all, build_s=build_s)
 
     src = "sres_tpu_torch/ops/cuda/winograd.cu"
@@ -3846,7 +4273,8 @@ def main() -> int:
              "fgroup_ca": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:80"),
              "fgroup_wgrad": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
              "fgroup_ca_bwd": (fg_src, "sres_tpu/ops/pallas/attic/residual_group.py:194"),
-             "wino_chain": (src, "sres_tpu/ops/pallas/winograd_conv.py:339")}
+             "wino_chain": (src, "sres_tpu/ops/pallas/winograd_conv.py:339"),
+             **{k: (Q_SRC, v) for k, v in Q_REPLACES.items()}}
     # the CUDA kernels behind each window-attention entry
     fwd = ["wattn_fwd_core_kernel", "wattn_fwd_proj_kernel"]
     bwd = ["wattn_bwd_core_kernel", "wattn_bwd_proj_kernel", "sum_partials_kernel"]
@@ -3856,7 +4284,7 @@ def main() -> int:
                     "window_attention_bwd_t256": dict(t=256, kernels=bwd)}
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=where[k][0], replaces=where[k][1],
-             launches=launches[k], serve_launches=serve_launches.get(k, 0),
+             launches=launches.get(k, 0), serve_launches=serve_launches.get(k, 0),
              trainer_launches=trainer_launches.get(k, 0),
              region_launches=region_launches.get(k, 0),
              real_data_launches=real_data_launches.get(k, 0),

@@ -25,6 +25,7 @@ import torch.nn as nn
 from sres_tpu_torch.models.layers import Conv, ResBlock, SPUpsample
 from sres_tpu_torch.models.registry import resolve_parms
 from sres_tpu_torch.models.wino_blocks import WinoResTrunk
+from sres_tpu_torch.ops.int8_conv import check_mode
 from sres_tpu_torch.ops.winograd import check_geometry
 
 
@@ -32,21 +33,24 @@ class EDSR(nn.Module):
     def __init__(self, nchannels_in: int, nchannels_out: int, nfeatures: int,
                  nlayers: int, kernel_size: int, scale: int,
                  res_scale: float = 1.0, use_bias: bool = True,
-                 winograd: Optional[int] = None,
+                 winograd: Optional[int] = None, lane_pack: int = 1,
+                 quantization: Optional[str] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if winograd and kernel_size != 3:
+        quant = check_mode(quantization)
+        self.quant, self.winograd = quant, None if quant else winograd
+        if self.winograd and kernel_size != 3:
             raise ValueError("model.winograd needs kernel_size 3")
-        self.winograd = winograd
         self.dtype = dtype
         nf, k = nfeatures, kernel_size
         self.head = nn.Sequential(Conv(nchannels_in, nf, k, use_bias))
-        if winograd:
+        if self.winograd:
             self.body = WinoResTrunk(nf, nlayers, winograd, res_scale, use_bias)
         else:
             self.body = nn.Sequential(
-                *[ResBlock(nf, k, use_bias, res_scale) for _ in range(nlayers)],
-                Conv(nf, nf, k, use_bias))
+                *[ResBlock(nf, k, use_bias, res_scale, quant, lane_pack)
+                  for _ in range(nlayers)],
+                Conv(nf, nf, k, use_bias, quant=quant, pack=lane_pack))
         self.tail = nn.Sequential(SPUpsample(scale, nf),
                                   Conv(nf, nchannels_out, k, use_bias))
 
@@ -57,6 +61,8 @@ class EDSR(nn.Module):
             check_geometry(self.winograd, skip.shape[2], skip.shape[3])
             res = self.body(skip.contiguous(memory_format=torch.channels_last))
         else:
+            if self.quant:
+                skip = skip.contiguous(memory_format=torch.channels_last)
             res = self.body(skip) + skip
         return self.tail(res).float()
 
@@ -67,15 +73,13 @@ def build(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
                                       winograd=None, winograd_bs=0,
                                       scan_groups=False, remat_trunk=None),
                       nchannels_in=nchannels_in, nchannels_out=nchannels_out)
-    # lane_pack, winograd_bs, scan_groups and remat_trunk are TPU layout and
-    # compile-time levers: accepted, no effect here (ROADMAP "leaves out")
-    if p["quantization"]:
-        raise NotImplementedError(
-            f"model.quantization={p['quantization']!r} is not ported: "
-            "ROADMAP Queue 1 item 10")
+    # winograd_bs, scan_groups and remat_trunk are TPU layout and
+    # compile-time levers: accepted, no effect here (ROADMAP "leaves out");
+    # lane_pack sets the quantized convs' scale groups only
     return EDSR(
         nchannels_in=p["nchannels_in"], nchannels_out=p["nchannels_out"],
         nfeatures=p["nfeatures"], nlayers=p["nlayers"],
         kernel_size=p["kernel_size"], scale=p["scale"],
         res_scale=float(p["res_scale"]), use_bias=p["bias"],
-        winograd=(int(p["winograd"]) if p["winograd"] else None), dtype=dtype)
+        winograd=(int(p["winograd"]) if p["winograd"] else None),
+        lane_pack=int(p["lane_pack"]), quantization=p["quantization"], dtype=dtype)

@@ -13,7 +13,12 @@ so an exported JAX state dict loads with ``strict=True``.
 Precision: parameters are f32; every module computes in its input's dtype,
 casting its weights at use (the JAX modules' ``dtype=``). These convs are
 plain ``F.conv2d`` and ``F.conv_transpose2d`` (cuDNN on the card), as they
-are XLA convs in JAX.
+are XLA convs in JAX, unless a ``Conv`` is built with ``quant`` (one of
+``ops.int8_conv.MODES``: the ``quant_conv_fn`` hook of layers.py:104-117,
+reached from ``Conv`` and ``_PackedConvCore``): it then runs on the s8
+kernels of ``ops/int8_conv.py``, its activation scales shared over groups
+of ``pack`` consecutive samples when the batch holds that many (JAX's lane
+packing: a pack of tiles shares one scale).
 
 BatchNorm is torch-exact and padding-aware, as the JAX ``_TorchBNCore``:
 statistics in f32, normalisation by the biased batch variance, the running
@@ -33,21 +38,35 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from sres_tpu_torch.ops.int8_conv import check_mode, quant_conv
 
 class Conv(nn.Conv2d):
     """k×k conv, torch-default init; by default stride 1 and 'same' zero
     padding k//2 (reference default_conv: sres/model/common/cnn.py:8), or
     an explicit stride and padding (DBPN's down-projection, k 8, s 4, p 2
-    at ×4: sres_tpu/models/dbpn.py:28-32)."""
+    at ×4: sres_tpu/models/dbpn.py:28-32). With ``quant`` (stride 1, 'same'
+    only) it is a quantized conv (``ops.int8_conv.quant_conv``): ``pack``
+    consecutive samples share an activation scale when the batch holds
+    that many, else each has its own (sres_tpu/models/rcan.py:76); ``plain``
+    then routes it through the kernels' twins."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
                  bias: bool = True, stride: int = 1,
-                 padding: Optional[int] = None):
+                 padding: Optional[int] = None, quant: Optional[str] = None,
+                 pack: int = 1):
         super().__init__(cin, cout, kernel_size, stride=stride,
                          padding=kernel_size // 2 if padding is None else padding,
                          bias=bias)
+        self.quant = check_mode(quant)
+        if self.quant:
+            if stride != 1 or self.padding != (kernel_size // 2,) * 2 or kernel_size % 2 == 0:
+                raise ValueError("a quantized conv is stride-1 'same' with an odd kernel")
+            self.pack, self.plain = max(1, int(pack)), False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            pk = self.pack if x.shape[0] >= self.pack else 1
+            return quant_conv(x, self.weight, self.bias, self.quant, pk, self.plain)
         b = self.bias.to(x.dtype) if self.bias is not None else None
         return F.conv2d(x, self.weight.to(x.dtype), b, stride=self.stride,
                         padding=self.padding)
@@ -185,13 +204,15 @@ class RCAB(nn.Module):
     """Residual channel-attention block (reference rcan/network.py:50):
     body = conv → ReLU → conv → CA, then the block skip. Its convs always
     have a bias, whatever ``model.bias`` says (sres_tpu/models/layers.py
-    :392-395)."""
+    :392-395); ``quant`` reaches its two 3×3 convs, the CA's 1×1 convs stay
+    in full precision (:381-405)."""
 
-    def __init__(self, features: int, kernel_size: int, reduction: int):
+    def __init__(self, features: int, kernel_size: int, reduction: int,
+                 quant: Optional[str] = None, pack: int = 1):
         super().__init__()
-        self.body = nn.Sequential(Conv(features, features, kernel_size),
+        self.body = nn.Sequential(Conv(features, features, kernel_size, quant=quant, pack=pack),
                                   nn.ReLU(),
-                                  Conv(features, features, kernel_size),
+                                  Conv(features, features, kernel_size, quant=quant, pack=pack),
                                   CALayer(features, reduction))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -201,13 +222,15 @@ class RCAB(nn.Module):
 class ResidualGroup(nn.Module):
     """nblocks × RCAB + trailing conv + group skip (reference
     rcan/network.py:67); the trailing conv always has a bias
-    (sres_tpu/models/layers.py:433)."""
+    (sres_tpu/models/layers.py:433); ``quant`` reaches every RCAB and the
+    trailing conv (:443-444)."""
 
     def __init__(self, features: int, kernel_size: int, reduction: int,
-                 nblocks: int):
+                 nblocks: int, quant: Optional[str] = None, pack: int = 1):
         super().__init__()
-        blocks = [RCAB(features, kernel_size, reduction) for _ in range(nblocks)]
-        self.body = nn.Sequential(*blocks, Conv(features, features, kernel_size))
+        blocks = [RCAB(features, kernel_size, reduction, quant, pack) for _ in range(nblocks)]
+        self.body = nn.Sequential(*blocks, Conv(features, features, kernel_size,
+                                                quant=quant, pack=pack))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.body(x)
@@ -215,15 +238,17 @@ class ResidualGroup(nn.Module):
 
 class ResBlock(nn.Module):
     """conv → ReLU → conv residual block scaled by ``res_scale`` (reference
-    common/residual.py:28): x + res_scale·body(x)."""
+    common/residual.py:28): x + res_scale·body(x); ``quant`` reaches both
+    convs."""
 
     def __init__(self, features: int, kernel_size: int = 3, bias: bool = True,
-                 res_scale: float = 1.0):
+                 res_scale: float = 1.0, quant: Optional[str] = None, pack: int = 1):
         super().__init__()
         self.res_scale = res_scale
-        self.body = nn.Sequential(Conv(features, features, kernel_size, bias),
-                                  nn.ReLU(),
-                                  Conv(features, features, kernel_size, bias))
+        self.body = nn.Sequential(
+            Conv(features, features, kernel_size, bias, quant=quant, pack=pack),
+            nn.ReLU(),
+            Conv(features, features, kernel_size, bias, quant=quant, pack=pack))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.body(x) * self.res_scale
@@ -231,11 +256,12 @@ class ResBlock(nn.Module):
 
 class BasicBlock(nn.Sequential):
     """conv [→ BatchNorm] [→ ReLU] (reference common/cnn.py:11): indices 0
-    (conv), 1 (BatchNorm, when present)."""
+    (conv, quantized with ``quant``), 1 (BatchNorm, when present)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 bias: bool = False, batch_norm: bool = True, relu: bool = True):
-        mods = [Conv(cin, cout, kernel_size, bias)]
+                 bias: bool = False, batch_norm: bool = True, relu: bool = True,
+                 quant: Optional[str] = None):
+        mods = [Conv(cin, cout, kernel_size, bias, quant=quant)]
         if batch_norm:
             mods.append(BatchNorm(cout))
         if relu:
@@ -388,8 +414,8 @@ def init_torch_default(model: nn.Module, seed: int) -> nn.Module:
 
 def set_plain_twins(model: nn.Module, plain: bool) -> nn.Module:
     """Route every kernel-backed module of ``model`` (those with a ``plain``
-    flag: the Winograd trunk, window attention) through the plain twins
-    (True) or the kernels (False)."""
+    flag: the Winograd trunk, window attention, the quantized convs)
+    through the plain twins (True) or the kernels (False)."""
     for mod in model.modules():
         if hasattr(mod, "plain"):
             mod.plain = plain

@@ -25,6 +25,23 @@ skip stay as in the direct path (sres_tpu/models/rcan.py:158-161), and
 ``fused`` wins over ``winograd`` (:85). The JAX model always lane-packs the
 fused trunk and pads an odd batch to the pack (:76-80); here each tile runs
 at C = 64, so there is nothing to pad.
+
+``quantization`` (``int8``, ``int8_fused``, ``int8_full``;
+ops/int8_conv.py) quantizes both convs of every RCAB, every group's
+trailing conv and the body conv (rcan.py:147-161); the CA, head, upsampler
+and tail stay in full precision. It switches the Winograd trunk off, as in
+JAX (:84-87). With ``fused`` the groups run the fused kernels unquantized
+and only the body conv is quantized (:147-150, :158-160). The activation
+scales are shared by the tiles that JAX packs together: ``lane_pack`` of
+them when the batch holds that many, else 1; always 2 under ``fused``
+(:76), even at batch 1.
+
+``remat_trunk`` checkpoints each residual group of the direct trunk
+(``torch.utils.checkpoint``, non-reentrant; the recompute quantizes again
+with the same scales). None means on under ``int8_full`` (JAX's default,
+rcan.py:50-58, :98-100: its int8 activation stash per conv otherwise
+fills the device) and off otherwise; the Winograd and fused trunks ignore
+it, as JAX does.
 """
 from __future__ import annotations
 
@@ -32,11 +49,13 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from sres_tpu_torch.models.fused import FusedResidualGroup
 from sres_tpu_torch.models.layers import Conv, ResidualGroup, SPUpsample
 from sres_tpu_torch.models.registry import resolve_parms
 from sres_tpu_torch.models.wino_blocks import WinoConv, WinoResidualGroup
+from sres_tpu_torch.ops.int8_conv import check_mode
 from sres_tpu_torch.ops.winograd import check_geometry
 
 
@@ -45,27 +64,35 @@ class RCAN(nn.Module):
                  nlayers: int, nblocks: int, cbottleneck: int, kernel_size: int,
                  scale: int, use_bias: bool = True,
                  winograd: Optional[int] = None, fused: bool = False,
+                 lane_pack: int = 1, quantization: Optional[str] = None,
+                 remat_trunk: Optional[bool] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if (winograd or fused) and kernel_size != 3:
+        quant = check_mode(quantization)
+        if (fused or (winograd and not quant)) and kernel_size != 3:
             raise ValueError("model.winograd and model.fused need kernel_size 3")
-        self.fused = fused
-        self.winograd = None if fused else winograd
+        self.fused, self.quant = fused, quant
+        self.winograd = None if fused or quant else winograd
+        # the tiles that share an activation scale: JAX's pack (rcan.py:76)
+        pack = 2 if fused else max(1, int(lane_pack))
+        direct = not (fused or self.winograd)
+        self.remat = direct and (quant == "int8_full" if remat_trunk is None
+                                 else bool(remat_trunk))
         self.dtype = dtype
         nf, k = nfeatures, kernel_size
         self.head = nn.Sequential(Conv(nchannels_in, nf, k, use_bias))
         if fused:
             groups = [FusedResidualGroup(nf, cbottleneck, nblocks)
                       for _ in range(nlayers)]
-            body_conv = Conv(nf, nf, k, use_bias)
-        elif winograd:
+            body_conv = Conv(nf, nf, k, use_bias, quant=quant, pack=pack)
+        elif self.winograd:
             groups = [WinoResidualGroup(nf, cbottleneck, nblocks, winograd)
                       for _ in range(nlayers)]
             body_conv = WinoConv(nf, nf, winograd, use_bias)
         else:
-            groups = [ResidualGroup(nf, k, cbottleneck, nblocks)
+            groups = [ResidualGroup(nf, k, cbottleneck, nblocks, quant, pack)
                       for _ in range(nlayers)]
-            body_conv = Conv(nf, nf, k, use_bias)
+            body_conv = Conv(nf, nf, k, use_bias, quant=quant, pack=pack)
         self.body = nn.Sequential(*groups, body_conv)
         self.tail = nn.Sequential(SPUpsample(scale, nf),
                                   Conv(nf, nchannels_out, k, use_bias))
@@ -81,9 +108,13 @@ class RCAN(nn.Module):
                 res = group(res)
             res = self.body[-1](res, residual=skip)
         else:
-            if self.fused:
+            if self.fused or self.quant:
                 skip = skip.contiguous(memory_format=torch.channels_last)
-            res = self.body(skip) + skip
+            remat = self.remat and torch.is_grad_enabled()
+            res = skip
+            for group in list(self.body)[:-1]:
+                res = checkpoint(group, res, use_reentrant=False) if remat else group(res)
+            res = self.body[-1](res) + skip
         return self.tail(res).float()
 
 
@@ -95,12 +126,9 @@ def build(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
                                       winograd=None, winograd_bs=0,
                                       scan_groups=False),
                       nchannels_in=nchannels_in, nchannels_out=nchannels_out)
-    # lane_pack, winograd_bs, scan_groups and remat_trunk are TPU layout and
-    # compile-time levers: accepted, no effect here (ROADMAP "leaves out")
-    if p["quantization"]:
-        raise NotImplementedError(
-            f"model.quantization={p['quantization']!r} is not ported: "
-            "ROADMAP Queue 1 item 10")
+    # winograd_bs and scan_groups are TPU layout and compile-time levers:
+    # accepted, no effect here (ROADMAP "leaves out"); lane_pack sets the
+    # quantized convs' scale groups only
     if p["pervar_heads"]:
         raise NotImplementedError(
             "model.pervar_heads is not ported: ROADMAP Queue 1 item 3")
@@ -110,4 +138,5 @@ def build(model_cfg: Mapping, nchannels_in: int, nchannels_out: int,
         cbottleneck=p["cbottleneck"], kernel_size=p["kernel_size"],
         scale=p["scale"], use_bias=p["bias"],
         winograd=(int(p["winograd"]) if p["winograd"] else None),
-        fused=bool(p["fused"]), dtype=dtype)
+        fused=bool(p["fused"]), lane_pack=int(p["lane_pack"]),
+        quantization=p["quantization"], remat_trunk=p["remat_trunk"], dtype=dtype)

@@ -92,6 +92,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sres_fg_wgrad.argtypes = [vp] * 5 + [i] + [vp] * 3 + [i] * 5 + [vp]
     lib.sres_fg_ca_bwd.restype = i
     lib.sres_fg_ca_bwd.argtypes = [vp] * 12 + [i] * 5 + [vp]
+    ll = ctypes.c_longlong
+    lib.sres_q8_quantize.restype = i
+    lib.sres_q8_quantize.argtypes = [vp, i] + [ll] * 5 + [i] * 5 + [vp, i] + [vp] * 3 + [i, vp]
+    lib.sres_s8_conv_fprop.restype = i
+    lib.sres_s8_conv_fprop.argtypes = [vp] * 6 + [i] * 8 + [vp]
+    lib.sres_s8_conv_wgrad.restype = i
+    lib.sres_s8_conv_wgrad.argtypes = [vp] * 5 + [i] * 8 + [vp]
     return lib
 
 

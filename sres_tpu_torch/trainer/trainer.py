@@ -68,6 +68,7 @@ from sres_tpu_torch.models.lapsrn import Pyramid
 from sres_tpu_torch.models.layers import has_batch_norm
 from sres_tpu_torch.models.temporal import get_temporal_features
 from sres_tpu_torch.ops.assemble import assemble_tiles
+from sres_tpu_torch.ops.int8_conv import AQT_SERVING_ONLY_MSG
 from sres_tpu_torch.ops.resize import downsample, upsample
 from sres_tpu_torch.parallel.spatial import infer_region_sharded
 from sres_tpu_torch.trainer.checkpoints import CheckpointManager
@@ -284,6 +285,9 @@ class ModelTrainer:
         ``interp_loss`` is accepted; the baseline is always computed."""
         if nepochs == 0:
             return {}
+        if cfg().model.get("quantization") == "int8":
+            # AQT is serving-only (sres_tpu/trainer/trainer.py:317-319)
+            raise ValueError(AQT_SERVING_ONLY_MSG)
         seed = kwargs.get("seed", 4456)
         self.dataset.reseed(seed)
         self._shuffle_rng = random.Random(seed)

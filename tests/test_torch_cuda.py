@@ -1,7 +1,8 @@
 """The port's CUDA kernels (forward and backward: the Winograd conv with its
 scaled residual epilogue, the conv chain, channel attention, the ungated
 group of EDSR's trunk, the window attention, the direct-conv group kernels
-of ``model.fused``) against their plain twins, on the card.
+of ``model.fused``, the int8 kernels of ``model.quantization``) against
+their plain twins, on the card.
 
 Imports no JAX, so it runs on a machine that has only torch and a card;
 tests/conftest.py imports JAX, so skip it there:
@@ -11,7 +12,8 @@ tests/conftest.py imports JAX, so skip it there:
 Every test skips without a card. Tolerances: f32 max|kernel − twin| ≤
 3e-5·max|twin|; bf16 rel_err(kernel, f32 twin) ≤ 2·rel_err(bf16 twin, f32
 twin) + 1e-4 (the envelope of tests/test_winograd.py:
-test_winograd_bf16_noise_envelope).
+test_winograd_bf16_noise_envelope). The int8 kernels are bit-equal to
+their twins (exact integer sums, the same rounding steps).
 """
 import numpy as np
 import pytest
@@ -939,3 +941,133 @@ def test_served_after_loading_weights_equals_a_fresh_model(dev):
     torch.cuda.synchronize()
     assert not torch.equal(before, want)
     assert torch.equal(after, want)
+
+
+# ------------------------------------------------------------- int8 kernels
+def _q8():
+    from sres_tpu_torch.ops import int8_conv as q8
+    return q8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid", [0, 1])
+@pytest.mark.parametrize("kind", ["act1", "act2", "wout", "win_flip", "whole_pre"])
+def test_q8_quantize_matches_twin(dev, dtype, grid, kind):
+    """q8_quantize at every scale-group kind, both grids, f32 and bf16
+    input (NCHW and channels_last activations): q and the scales bit-equal
+    to the twin."""
+    q8 = _q8()
+    if kind == "whole_pre" and grid == 1:
+        pytest.skip("AQT scales no tensor by a prefactor")
+    rng = np.random.default_rng(7)
+    if kind.startswith("act") or kind == "whole_pre":
+        t = _t(rng, (5, 64, 7, 9), dev).to(dtype)
+        if kind == "act2":
+            t = t.contiguous(memory_format=torch.channels_last)
+    else:
+        t = _t(rng, (64, 64, 3, 3), dev, 0.05).to(dtype)
+    group = {"act1": 1, "act2": 2, "wout": 1, "win_flip": 1, "whole_pre": None}[kind]
+    flip = kind == "win_flip"
+    if flip:
+        t = t.transpose(0, 1)
+    pre = _t(rng, (5,), dev).abs() + 0.5 if kind == "whole_pre" else None
+    launches = q8.LAUNCHES["q8_quantize"]
+    q, s = q8.quantize(t, group, grid, pre=pre, flip=flip)
+    qp, sp = q8.quantize_plain(t, group, grid, pre=pre, flip=flip)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(q.float(), qp) and torch.equal(s, sp)
+    assert q8.LAUNCHES["q8_quantize"] == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [64, 1])
+@pytest.mark.parametrize("mode,dtype", [(0, torch.bfloat16), (0, torch.float32),
+                                        (1, torch.float32), (2, torch.bfloat16)])
+@pytest.mark.parametrize("pk", [1, 2])
+def test_s8_conv_fprop_matches_twin(dev, cin, mode, dtype, pk):
+    """s8_conv_fprop against its twin, bit for bit: an odd batch, ragged
+    pixel tiles (5·7·9 pixels), bias or none, each epilogue."""
+    q8 = _q8()
+    rng = np.random.default_rng(cin + mode)
+    x = _t(rng, (5, cin, 7, 9), dev).contiguous(memory_format=torch.channels_last)
+    w = _t(rng, (64, cin, 3, 3), dev, 0.05)
+    b = _t(rng, (64,), dev, 0.1).to(dtype) if mode != 1 else None
+    grid = 0 if mode == 0 else 1
+    xq, sx = q8.quantize(x.to(dtype) if grid else x, pk, grid)
+    wq, sw = q8.quantize(w.to(dtype) if grid else w, 1, grid)
+    launches = q8.LAUNCHES["s8_conv_fprop"]
+    y = q8.conv_fprop(xq, wq, sx, pk, sw, b, dtype, mode)
+    yp = q8.conv_fprop(xq.float(), wq.float(), sx, pk, sw, b, dtype, mode, plain=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and torch.isfinite(y.float()).all()
+    assert torch.equal(y, yp)
+    assert q8.LAUNCHES["s8_conv_fprop"] == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [64, 1])
+@pytest.mark.parametrize("pk,batch", [(1, 4), (2, 5), (2, 1)])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_s8_conv_wgrad_matches_twin(dev, cin, pk, batch, wdt):
+    """s8_conv_wgrad against its twin, bit for bit: per-slot sums, an odd
+    batch and a batch smaller than the pack, chunks of the slots' pixel
+    streams that cross samples (a 1024-pixel chunk over 40·30 pixels)."""
+    q8 = _q8()
+    rng = np.random.default_rng(cin + pk + batch)
+    x = _t(rng, (batch, cin, 40, 30), dev)
+    g = _t(rng, (batch, 64, 40, 30), dev)
+    xq, sx = q8.quantize(x, pk)
+    gq, sgp = q8.quantize(g, None, pre=q8._rows(sx, pk, batch))
+    launches = q8.LAUNCHES["s8_conv_wgrad"]
+    dw = q8.conv_wgrad(xq, gq, (64, cin, 3, 3), pk, sgp, wdt)
+    dwp = q8.conv_wgrad(xq.float(), gq.float(), (64, cin, 3, 3), pk, sgp, wdt, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dwp)
+    assert q8.LAUNCHES["s8_conv_wgrad"] == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "int8_fused", "int8_full"])
+@pytest.mark.parametrize("name", ["rcan", "edsr", "vdsr"])
+def test_quantized_models_match_twins(dev, quant, name):
+    """A 64-feature RCAN (1 group, 2 blocks), EDSR (2 blocks) and VDSR (3
+    layers) under each mode, f32: the forward on the kernels equals the
+    twins' bit for bit; so do one step's int8_full gradients (cuDNN made
+    deterministic for the unquantized convs); int8_fused's backward convs
+    are cuDNN's bf16 convs on both paths, within a bf16 ulp."""
+    from sres_tpu_torch.models import build_model
+    from sres_tpu_torch.models.layers import set_plain_twins
+    q8 = _q8()
+    cfgs = dict(rcan=dict(nlayers=1, nblocks=2, cbottleneck=2, lane_pack=2),
+                edsr=dict(nlayers=2, lane_pack=2), vdsr=dict(nlayers=3))
+    cfg = dict(name=name, nfeatures=64, kernel_size=3, downscale_factors=[2, 2],
+               quantization=quant, **cfgs[name])
+    model = build_model(cfg, 1, 1, "f32", seed=0, device=dev)
+    lr = _t(np.random.default_rng(3), (3, 1, 12, 12), dev)
+    outs = []
+    # deterministic cuDNN: an f32 difference in a cotangent can flip one
+    # int8_full quantization step downstream
+    torch.backends.cudnn.deterministic = True
+    for plain in (False, True):
+        set_plain_twins(model, plain)
+        model.zero_grad()
+        q8.reset_launches()
+        if quant == "int8":
+            with torch.no_grad():
+                y = model(lr)
+            outs.append((y, None))
+        else:
+            y = model(lr)
+            y.square().mean().backward()
+            outs.append((y.detach(), [p.grad.clone() for p in model.parameters()]))
+        torch.cuda.synchronize()
+        assert (q8.LAUNCHES["s8_conv_fprop"] > 0) != plain
+    torch.backends.cudnn.deterministic = False
+    assert torch.equal(outs[0][0], outs[1][0])
+    if quant != "int8":
+        tol = 0.0 if quant == "int8_full" else 2.0 ** -7
+        for (n, _), a, b in zip(model.named_parameters(), outs[0][1], outs[1][1]):
+            err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            assert err <= tol, (n, err)

@@ -278,15 +278,21 @@ def test_edsr_winograd_state_dict_names_match_direct():
 
 
 def test_edsr_knobs_geometry_and_unported_options():
-    """TPU knobs are accepted with no effect; quantization raises; under
-    winograd a tile that m does not divide raises (the JAX model falls back
-    to the direct path instead, ROADMAP Queue 3)."""
+    """TPU knobs are accepted with no effect; quantization builds (ported:
+    the same parameter names, the Winograd trunk switched off, as in JAX)
+    and an unknown mode raises; under winograd a tile that m does not
+    divide raises (the JAX model falls back to the direct path instead,
+    ROADMAP Queue 3)."""
     ref = build_model(CFG, 1, 1, "f32", device="cpu").state_dict()
     knobs = build_model(dict(CFG, lane_pack=2, winograd_bs=4, scan_groups=True,
                              remat_trunk=True), 1, 1, "f32", device="cpu")
     assert list(knobs.state_dict()) == list(ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(CFG, quantization="int8_fused"), 1, 1, "f32", device="cpu")
+    quant = build_model(dict(CFG, quantization="int8_fused", winograd=4), 1, 1, "f32",
+                        device="cpu")
+    assert quant.quant == "int8_fused" and not quant.winograd
+    assert list(quant.state_dict()) == list(ref)
+    with pytest.raises(ValueError, match="Unknown quantization mode"):
+        build_model(dict(CFG, quantization="int4"), 1, 1, "f32", device="cpu")
     model = build_model(dict(CFG, winograd=4), 1, 1, "f32", device="cpu")
     with pytest.raises(ValueError, match="multiples of the tile size"), torch.no_grad():
         model(torch.zeros(1, 1, 6, 6))

@@ -249,6 +249,10 @@ for zname, zcfg in zoo.items():
     with torch.no_grad():
         zo = zm(*zargs)
     zoo_out[zname] = [list(t.shape) for t in (zo if isinstance(zo, tuple) else (zo,))]
+import sres_tpu_torch.ops.int8_conv
+qm = build_model(dict(name="rcan", nfeatures=4, nlayers=1, nblocks=1, lane_pack=2,
+                      quantization="int8_full"), 1, 1, "f32", seed=1, device="cpu")
+q8_out = list(qm(torch.zeros(3, 1, 8, 8)).shape)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "jaxlib", "flax", "optax", "yaml", "sres_tpu"))
 out = io.StringIO()
@@ -259,7 +263,7 @@ print(json.dumps(dict(bad=bad, rc=rc, stdout=out.getvalue(), sd_keys=len(sd),
                       swin16_out=swin16_out, t256_out=t256_out,
                       edsr_keys=len(edsr_sd), edsr_out=edsr_out, chain_out=chain_out,
                       csv_rows=csv_rows, nc_files=nc_files, zarr_shape=zarr_shape,
-                      zoo_out=zoo_out)))
+                      zoo_out=zoo_out, q8_out=q8_out)))
 """
 
 
@@ -286,7 +290,8 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     zarr export launcher on a SWOT-format fixture (the compiled decoder,
     the SWOT reader, the zarr writer), and after building and running a
     tiny model of each of the eight zoo architectures on the CPU (the UNet
-    with 4 temporal features; LapSRN and MSCNN one output a level)."""
+    with 4 temporal features; LapSRN and MSCNN one output a level), and
+    after a tiny int8_full RCAN's forward (ops/int8_conv.py's twins)."""
     assert fresh_process["bad"] == []
     assert fresh_process["sd_keys"] == 20
     assert fresh_process["swin_keys"] == 25
@@ -303,6 +308,7 @@ def test_port_imports_no_jax_and_no_yaml(fresh_process):
     assert fresh_process["zoo_out"] == dict(
         vdsr=[hr], dbpn=[hr], latticenet=[hr], esrt=[hr], srdn=[hr], unet=[hr],
         lapsrn=[[2, 1, 16, 16], hr], mscnn=[[2, 1, 16, 16], hr])
+    assert fresh_process["q8_out"] == [3, 1, 32, 32]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(fresh_process):

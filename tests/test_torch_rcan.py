@@ -142,9 +142,12 @@ def test_seeded_init_is_reproducible_and_torch_default():
 
 
 def test_unported_knobs_raise_and_tpu_knobs_are_ignored():
-    for extra in (dict(quantization="int8_fused"), dict(pervar_heads=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(dict(CFG, **extra), 1, 1, "f32", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(dict(CFG, pervar_heads=True), 1, 1, "f32", device="cpu")
+    # model.quantization builds (ported) with the direct model's parameter
+    # names; an unknown mode raises as in JAX
+    with pytest.raises(ValueError, match="Unknown quantization mode"):
+        build_model(dict(CFG, quantization="int4"), 1, 1, "f32", device="cpu")
     with pytest.raises(KeyError, match="Unknown model 'nosuch'; available: .*'vdsr'"):
         build_model(dict(CFG, name="nosuch"), 1, 1, "f32", device="cpu")
     ref = build_model(CFG, 1, 1, "f32", device="cpu").state_dict()
@@ -157,6 +160,10 @@ def test_unported_knobs_raise_and_tpu_knobs_are_ignored():
                              remat_trunk=True), 1, 1, "f32",
                         device="cpu").state_dict()
     assert list(ref) == list(knobs)
+    quant = build_model(dict(CFG, quantization="int8_fused", winograd=4), 1, 1, "f32",
+                        device="cpu")
+    assert quant.quant == "int8_fused" and not quant.winograd
+    assert list(quant.state_dict()) == list(ref)
 
 
 def test_winograd_is_forward_only():

@@ -253,7 +253,9 @@ def test_kernel_order_u_is_a_permutation_and_back(m, order):
 SERVE_TRAIN = {"rcan-direct": ("rcan", {}), "rcan-winograd-2": ("rcan", {"winograd": 2}),
                "rcan-winograd-4": ("rcan", {"winograd": 4}),
                "rcan-fused": ("rcan", {"fused": True}),
-               "edsr-winograd-4": ("edsr", {"winograd": 4})}
+               "edsr-winograd-4": ("edsr", {"winograd": 4}),
+               "rcan-int8_full": ("rcan", {"quantization": "int8_full", "lane_pack": 2}),
+               "edsr-int8_fused": ("edsr", {"quantization": "int8_fused", "lane_pack": 2})}
 
 
 @pytest.mark.parametrize("trunk", list(SERVE_TRAIN))

@@ -36,8 +36,9 @@ def test_adam_trajectory_matches_optax(arch):
 def test_every_model_yaml_builds():
     """``build_model`` builds every name of sres_tpu's registry, each from
     its config/model YAML at the published widths (the UNet with 4 temporal
-    features), and raises KeyError for any other name; VDSR's AQT
-    ``quantization`` raises (ROADMAP Queue 1 item 10)."""
+    features), and raises KeyError for any other name; VDSR builds under
+    AQT's ``quantization`` (ported) with its parameter names, and an
+    unknown mode raises ValueError, as in JAX."""
     from pathlib import Path
 
     import yaml
@@ -55,5 +56,8 @@ def test_every_model_yaml_builds():
     assert built == set(model_names())
     with pytest.raises(KeyError, match="available"):
         build_model(dict(name="nosuch"), 1, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_model(dict(name="vdsr", quantization="int8"), 1, 1, device="cpu")
+    vdsr = build_model(dict(name="vdsr"), 1, 1, device="cpu").state_dict()
+    quant = build_model(dict(name="vdsr", quantization="int8"), 1, 1, device="cpu")
+    assert list(quant.state_dict()) == list(vdsr)
+    with pytest.raises(ValueError, match="Unknown quantization mode"):
+        build_model(dict(name="vdsr", quantization="int4"), 1, 1, device="cpu")
